@@ -4,8 +4,7 @@ Renders a ground-truth image of the bunny scene, perturbs the mesh's vertex
 positions with noise, then optimizes them back by gradient descent through
 the differentiable renderer — gradients flow through the detached closest
 hit (re-derived winning triangle) AND through the soft-shadow transmittance
-(on TPU via the hand-written Pallas VJP kernels, raytpu/render/pallas_soft.py;
-the prim-side "wgrad" kernel produces exactly these vertex cotangents).
+(the jnp transmittance's autodiff produces the occluder-vertex cotangents).
 
 A capability the reference has no analog for (it is a pure forward
 renderer); exercises SURVEY.md §7.4's differentiability layer end to end.
@@ -33,7 +32,7 @@ def main(argv=None) -> int:
     p.add_argument("--size", default="96x72")
     p.add_argument("--noise", type=float, default=0.15)
     p.add_argument("--out", default="geometry_fit.png")
-    p.add_argument("--platform", default=None)
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     args = p.parse_args(argv)
     if args.platform:
         import jax
@@ -48,6 +47,9 @@ def main(argv=None) -> int:
     from raytpu.core.types import RenderConfig
     from raytpu.grad import diff_render
     from raytpu.utils.image import write_png
+    from raytpu.utils import compile_cache
+
+    compile_cache.enable()
 
     w, h = (int(x) for x in args.size.lower().split("x"))
     # a gentler sigmoid than the default: wider shadow-edge support gives the

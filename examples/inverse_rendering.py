@@ -27,7 +27,7 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--size", default="96x72")
     p.add_argument("--out", default="inverse_rendering.png")
-    p.add_argument("--platform", default=None)
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     p.add_argument("--checkpoint-dir", default=None,
                    help="save/resume optimization state under this directory")
     p.add_argument("--checkpoint-every", type=int, default=50)
@@ -45,6 +45,9 @@ def main(argv=None) -> int:
     from raytpu.core.types import RenderConfig
     from raytpu.grad import diff_render
     from raytpu.utils.image import write_png
+    from raytpu.utils import compile_cache
+
+    compile_cache.enable()
 
     w, h = (int(x) for x in args.size.lower().split("x"))
     cfg = RenderConfig(width=w, height=h, soft_shadows=True, soft_beta=60.0)

@@ -1,4 +1,4 @@
-"""raytpu — a TPU-native differentiable Whitted ray tracer.
+"""raytpu — a differentiable Whitted ray tracer for the GPU.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 CPU ray tracer (JonathanMenschaert/GP1_Raytracer_2223): camera ray generation,

@@ -11,6 +11,7 @@ All math is float32 — parity with the reference requires fp32 semantics.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 PI = 3.14159265358979323846
@@ -77,16 +78,26 @@ def lerp(a, b, factor):
 
 # ---------------------------------------------------------------------------
 # Row-vector 4x4 transforms.  M[i] is a basis row; points append an implicit 1.
+# Every product asks for HIGHEST precision: a GPU would otherwise run these
+# float32 matmuls in TF32 (~10 mantissa bits) and move the geometry.
 # ---------------------------------------------------------------------------
+
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def matmul(a, b):
+    """Full-precision float32 ``a @ b``."""
+    return jnp.matmul(a, b, precision=HIGHEST)
+
 
 def transform_vector(m, v):
     """``v @ M[:3,:3]`` — rotate/scale only (reference: source/Matrix.cpp:35-42)."""
-    return v @ m[:3, :3]
+    return matmul(v, m[:3, :3])
 
 
 def transform_point(m, p):
     """``p @ M[:3,:3] + M[3,:3]`` (reference: source/Matrix.cpp:49-56)."""
-    return p @ m[:3, :3] + m[3, :3]
+    return matmul(p, m[:3, :3]) + m[3, :3]
 
 
 def mat_identity():
@@ -126,7 +137,7 @@ def mat_rotation_z(roll):
 
 def mat_rotation(pitch, yaw, roll):
     """``Rx @ Ry @ Rz`` (reference: source/Matrix.cpp:150-155)."""
-    return mat_rotation_x(pitch) @ mat_rotation_y(yaw) @ mat_rotation_z(roll)
+    return matmul(matmul(mat_rotation_x(pitch), mat_rotation_y(yaw)), mat_rotation_z(roll))
 
 
 def mat_scale(s):
@@ -138,7 +149,7 @@ def mat_scale(s):
 def srt(scale_m, rot_m, trans_m):
     """Mesh final transform ``S @ R @ T`` — with row vectors this applies scale
     first, then rotation, then translation (reference: source/DataTypes.h:213)."""
-    return scale_m @ rot_m @ trans_m
+    return matmul(matmul(scale_m, rot_m), trans_m)
 
 
 # ---------------------------------------------------------------------------

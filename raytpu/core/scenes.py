@@ -217,7 +217,7 @@ def scene_w4_bunny() -> Scene:
 def _subdivide(pos, idx, levels: int):
     """Midpoint 1->4 triangle subdivision (no smoothing — the surface is
     identical, so renders match the base mesh except at shared-edge fp
-    ties).  Stress geometry for the streamed big-mesh kernel path; the
+    ties).  Stress geometry for the culled sweep's big-mesh path; the
     reference has no analog scene but its BVH is O(log N) for any N
     (reference: source/DataTypes.h:294-308)."""
     pos = np.asarray(pos, np.float32).reshape(-1, 3)
@@ -244,8 +244,8 @@ def _subdivide(pos, idx, levels: int):
 
 def scene_bunny_subdiv(levels: int = 4) -> Scene:
     """The bunny room with the mesh midpoint-subdivided ``levels`` times
-    (~297 * 4^levels triangles; 4 -> ~76k): the >=50k-triangle streamed
-    kernel scene.  Same surface as `bunny`, so images match it up to
+    (~297 * 4^levels triangles; 4 -> ~76k): the big-mesh culling scene.
+    Same surface as `bunny`, so images match it up to
     edge-tie fp flips."""
     b = SceneBuilder()
     gray_blue = b.add_lambert((0.49, 0.57, 0.57), 1.0)
@@ -315,9 +315,9 @@ REGISTRY: dict[str, SceneSpec] = {
     "reference": SceneSpec(scene_w4_reference, _cos_yaw, "default benchmark scene"),
     "bunny": SceneSpec(scene_w4_bunny, _cos_yaw, "lowpoly bunny x2"),
     "bunny50k": SceneSpec(scene_bunny_subdiv, _cos_yaw,
-                          "bunny subdivided 4x (~76k tris): streamed-kernel stress"),
+                          "bunny subdivided 4x (~76k tris): big-mesh culling stress"),
     "bunny300k": SceneSpec(functools.partial(scene_bunny_subdiv, 5), _cos_yaw,
-                           "bunny subdivided 5x (~300k tris): past MEGA3_MAX_TRIS"),
+                           "bunny subdivided 5x (~300k tris): big-mesh culling stress"),
     "optional": SceneSpec(scene_w4_optional, _cos_yaw, "Assignment3D1 x0.03 CT orange"),
 }
 

@@ -2,7 +2,7 @@
 
 The reference stores scenes as vectors of structs with virtual materials
 (reference: source/DataTypes.h, source/Scene.h, source/Material.h).  The
-TPU-native design inverts that: a scene is a frozen pytree of flat float32
+array-native design inverts that: a scene is a frozen pytree of flat float32
 arrays with static shapes — spheres/planes/triangles as structure-of-arrays,
 materials as a parameter *table* indexed by id (no vtable), meshes as a shared
 vertex pool + per-mesh transforms so per-frame animation is one batched matmul.
@@ -209,9 +209,11 @@ class Meshes:
         (reference: source/DataTypes.h:210-236)."""
         lin = self.scale[:, :, None] * self.rotation  # (N,3,3) == diag(s) @ R
         p_lin = lin[self.vertex_mesh]  # (V,3,3)
-        wpos = jnp.einsum("vi,vij->vj", self.positions, p_lin) + self.translation[self.vertex_mesh]
+        wpos = jnp.einsum("vi,vij->vj", self.positions, p_lin,
+                          precision=math3d.HIGHEST) + self.translation[self.vertex_mesh]
         n_lin = lin[self.face_mesh]  # (T,3,3)
-        wnrm = math3d.normalize(jnp.einsum("ti,tij->tj", self.face_normal, n_lin))
+        wnrm = math3d.normalize(jnp.einsum("ti,tij->tj", self.face_normal, n_lin,
+                                           precision=math3d.HIGHEST))
         v = wpos[self.face_vertex]  # (T,3,3)
         return Triangles(
             v0=v[:, 0],
@@ -496,8 +498,8 @@ class SceneBuilder:
             material=_i32(np.asarray(self._pl_m, np.int32)),
         )
         meshes = self._build_meshes()
-        # spatially order large meshes so the Pallas chunk-culling kernels
-        # see tight per-chunk AABBs (raytpu.ops.accel); small scenes keep
+        # spatially order large meshes so the culled sweep's cull groups
+        # get tight AABBs (raytpu.ops.accel); small scenes keep
         # insertion order for exact reference tie-break parity
         reorder_large = meshes.num_faces > 256
         lights = Lights(

@@ -24,156 +24,82 @@ import jax.numpy as jnp
 
 from raytpu.core.types import RenderConfig, Scene
 from raytpu.grad.fast import detached_closest_hit
-from raytpu.grad.soft import soft_trans_lights
-from raytpu.render import renderer
-from raytpu.render.renderer import render_image_f32
+from raytpu.ops import accel
+from raytpu.render import renderer, route, sweep as sweep_mod
 
 
-#: triangle count past which the differentiable path rides the Pallas kernels
-KERNEL_MIN_TRIS = 256
-
-#: feed the soft kernels rays in mega2 32x32-pixel-block order (tight
-#: per-1024-ray cull cones); module-level escape hatch for A/B probes
-TILE_KERNEL_RAYS = True
-
-
-def _pallas_min_t(scene, ro, rd, tmin):
-    """Chunk-culled Pallas winner search for the detached closest hit
-    (mega2 scalar-broadcast layout — the (RT, CT) chunked ``scene_min_t``
-    measured no faster than the dense jnp argmin, PERF.md round 2)."""
-    from raytpu.render import pallas_soft
-
-    return pallas_soft.scene_min_t_mega2(scene, ro, rd, tmin)
+def closest_fn_for(scene: Scene, sweep: bool | None = None, interpret: bool = False):
+    """The detached closest hit of the fast differentiable path, with its
+    winner search on the culled sweep when ``route.use_sweep`` says so
+    (also used per shard by the sharded train step,
+    raytpu/parallel/training.py).  Returns ``(closest_fn, tiled)``:
+    ``tiled`` asks the caller to feed rays in 32x32-pixel-block order."""
+    min_t_fn = None
+    if route.use_sweep(scene, sweep):
+        min_t_fn = functools.partial(sweep_mod.min_t, interpret=interpret)
+    closest_fn = functools.partial(detached_closest_hit, min_t_fn=min_t_fn)
+    # a detached winner search has O(R) residuals: render_pixels_f32 may
+    # hoist it outside the remat checkpoint
+    return renderer.mark_detached(closest_fn), min_t_fn is not None
 
 
-def _payload_closest_hit(scene, ro, rd, tmin):
-    """Fully-detached closest hit: the winner-search kernel emits the hit
-    payload (normal, material) from its own fold registers, so the XLA
-    payload-assembly one-hot matmuls (and their remat recompute + VJP
-    transposes) vanish.  Values match ``detached_closest_hit`` bit-for-bit;
-    what is lost is ONLY the visible-surface geometry gradient (∂image/∂
-    geometry through the hit point/normal).  Occluder-geometry gradients
-    still flow through the soft transmittance, and material/light gradients
-    are untouched (they never pass through the payload).  Select with
-    ``render_soft_f32(..., payload_grad=False)``."""
-    from raytpu.render import pallas_soft
-
-    sg = jax.lax.stop_gradient
-    ro_b = jnp.broadcast_to(ro, rd.shape)
-    t, idx, normal, mat = pallas_soft.scene_min_t_mega2(
-        sg(scene), sg(ro_b), sg(rd), tmin, payload=True)
-    return pallas_soft.hit_records_from_payload(ro_b, rd, t, normal, mat)
-
-
-def soft_backends(scene: Scene, cfg: RenderConfig, detached: bool = True,
-                  kernels: bool | None = None, payload_grad: bool = True):
-    """Resolve ``(closest_fn, soft_multi_fn)`` for the fast differentiable
-    path.  ``kernels=None`` auto-enables the Pallas custom-VJP kernels on
-    TPU when the scene fits their budgets (also used by the sharded train
-    step, raytpu/parallel/training.py)."""
-    if kernels is None:
-        from raytpu.render import pallas_kernel as _pk
-        from raytpu.render import pallas_soft as _ps
-
-        kernels = (
-            jax.default_backend() not in ("cpu",)
-            and KERNEL_MIN_TRIS <= scene.triangles.count <= _ps.STREAM_MAX_TRIS
-            and scene.spheres.count <= _pk.MEGA2_MAX_UNROLL
-            and scene.planes.count <= _pk.MEGA2_MAX_UNROLL
-            and scene.lights.count <= _pk.MEGA2_MAX_LIGHTS
-            # coarse2 worklist SMEM (same bound as the forward router): a
-            # many-light million-triangle scene must fall back to jnp
-            and scene.lights.count * -(-scene.triangles.count // 512)
-            <= _pk.MEGA3_WL_SMEM_ENTRIES
-        )
-    soft_multi_fn = None
-    closest_fn = detached_closest_hit if detached else None
-    if kernels:
-        soft_multi_fn = functools.partial(
-            soft_trans_lights, True, float(cfg.ray_min), float(cfg.soft_beta)
-        )
-        if detached and payload_grad:
-            closest_fn = functools.partial(detached_closest_hit, min_t_fn=_pallas_min_t)
-        elif detached:
-            closest_fn = _payload_closest_hit
-    if closest_fn is not None:
-        # every closest_fn this resolver returns is a detached/O(R)-residual
-        # winner search — mark it so render_pixels_f32 may hoist it outside
-        # the remat checkpoint (unmarked overrides stay inside)
-        closest_fn = renderer.mark_detached(closest_fn)
-    return closest_fn, soft_multi_fn
-
-
-@functools.partial(jax.jit, static_argnames=("config", "detached", "kernels",
-                                             "payload_grad"))
+@functools.partial(jax.jit, static_argnames=("config", "detached", "sweep", "interpret"))
 def render_soft_f32(scene: Scene, config: RenderConfig, detached: bool = True,
-                    kernels: bool | None = None, payload_grad: bool = True):
+                    sweep: bool | None = None, interpret: bool = False):
     """f32 soft-shadow render on the FAST differentiable path.
 
-    Three measured wins over naive ``grad(render)`` (PERF.md round 2):
       * the shade is rematerialized (``jax.checkpoint``): the backward pass
-        recomputes the fused forward instead of streaming O(R*N) residuals
-        from HBM (the backward was ~10x the forward, HBM-bound);
+        recomputes the fused forward instead of saving O(R*N) residuals;
       * ``detached`` (default): closest hits route through
         ``raytpu.grad.fast.detached_closest_hit`` — O(R) differentiated hit
-        re-derivation with one-hot matmul gathers, so the autodiff graph
-        never transposes the O(R*N) t-matrix;
-      * ``kernels`` (default: auto — on TPU with >= 256 triangles): the soft
-        transmittance and the detached winner search run as chunk-culled
-        Pallas kernels with a custom VJP (raytpu.grad.soft); gradients stay
-        the jnp path's gradients.
+        re-derivation, so the autodiff graph never transposes the O(R*N)
+        t-matrix;
+      * the detached winner search runs on the culled sweep where
+        ``route.use_sweep`` picks it (``sweep`` forces the choice); it is
+        forward-only, so gradients are the jnp path's gradients.  The soft
+        transmittance is the dense jnp one and its autodiff.
     """
     cfg = dataclasses.replace(config, soft_shadows=True)
-    closest_fn, soft_multi_fn = soft_backends(scene, cfg, detached, kernels,
-                                              payload_grad)
+    closest_fn, tiled = None, False
+    if detached:
+        closest_fn, tiled = closest_fn_for(scene, sweep, interpret)
+    tiled = tiled and accel.tile_foldable(cfg.height, cfg.width)
     ro, rd = renderer.generate_rays(scene.camera, cfg)
-    # tile order for the kernel path: 32x32 pixel blocks give the culled
-    # kernels tight per-1024-ray direction cones (and spatially compact
-    # shadow origins), like the whole-frame mega2 renderer; a pure
-    # reshape/transpose, inverted after shading
-    tiled = (
-        TILE_KERNEL_RAYS
-        and soft_multi_fn is not None
-        and cfg.height % 32 == 0 and cfg.width % 32 == 0
-    )
     if tiled:
-        from raytpu.render import pallas_kernel as pk
-
-        rd = pk._mega2_fold(rd, cfg.height, cfg.width)
-    colors = renderer.render_pixels_f32(
-        scene, ro, rd, cfg,
-        closest_fn=closest_fn,
-        remat=True,
-        soft_multi_fn=soft_multi_fn,
-    )
+        rd = accel.tile_fold(rd, cfg.height, cfg.width)
+    colors = renderer.render_pixels_f32(scene, ro, rd, cfg, closest_fn=closest_fn, remat=True)
     if tiled:
-        colors = pk._mega2_unfold_rows(colors, cfg.height, cfg.width)
+        colors = accel.tile_unfold(colors, cfg.height, cfg.width)
     return colors.reshape(cfg.height, cfg.width, 3)
 
 
-def render_soft(scene: Scene, config: RenderConfig):
+def render_soft(scene: Scene, config: RenderConfig, sweep: bool | None = None,
+                interpret: bool = False):
     """f32 render with soft (differentiable) shadow visibility."""
-    return render_soft_f32(scene, config)
+    return render_soft_f32(scene, config, sweep=sweep, interpret=interpret)
 
 
-def image_loss(scene: Scene, target, config: RenderConfig):
+def image_loss(scene: Scene, target, config: RenderConfig, sweep: bool | None = None,
+               interpret: bool = False):
     """Mean squared error against a target f32 image."""
-    img = render_soft(scene, config)
+    img = render_soft(scene, config, sweep, interpret)
     return jnp.mean((img - target) ** 2)
 
 
-def make_train_step(config: RenderConfig, optimizer, param_fn: Callable[[Scene], dict], merge_fn):
+def make_train_step(config: RenderConfig, optimizer, param_fn: Callable[[Scene], dict], merge_fn,
+                    sweep: bool | None = None, interpret: bool = False):
     """Build a jitted inverse-rendering step.
 
     Args:
       optimizer: an optax GradientTransformation.
       param_fn: scene -> pytree of the parameters being optimized.
       merge_fn: (scene, params) -> scene with parameters substituted.
+      sweep, interpret: the route override of ``render_soft_f32``.
     Returns ``step(params, opt_state, scene, target) -> (params, opt_state, loss)``.
     """
 
     def loss_fn(params, scene, target):
-        return image_loss(merge_fn(scene, params), target, config)
+        return image_loss(merge_fn(scene, params), target, config, sweep, interpret)
 
     # NOTE: params/opt_state are NOT donated: ``param_fn(scene)`` typically
     # returns views aliasing the scene's own arrays, so donating them would

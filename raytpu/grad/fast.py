@@ -15,9 +15,10 @@ work instead of O(R*N).  The value is the same math on the same winner as
 only the (exactly-zero-a.e.) boundary gradients are dropped.
 
 Gathers of the winning primitive's parameters are expressed as one-hot
-matmuls with a detached one-hot matrix: the VJP of an indexed gather is a
-scatter-add, which serializes badly on TPU, while the matmul's transpose is
-another matmul on the MXU.
+matmuls (at HIGHEST precision) with a detached one-hot matrix: the VJP of an
+indexed gather is a scatter-add, while the matmul's transpose is another
+matmul.  Whether a plain gather is faster on the GPU is not measured yet
+(ROADMAP).
 
 The expensive differentiable term that REMAINS O(R*N*L) is
 ``soft_transmittance`` — intentionally: its sigmoid shadow edges are the
@@ -26,7 +27,7 @@ just an argmin), so they cannot be detached.
 
 Replaces the gradient path through ``Scene::GetClosestHit`` (reference:
 source/Scene.cpp:29-66) — the reference has no gradients at all; this is the
-TPU-native differentiability layer of SURVEY.md §7.4 made cheap.
+differentiability layer of SURVEY.md §7.4 made cheap.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from raytpu.ops.intersect import FLT_EPSILON, INF, HitRecords
 
 
 # gather of a detached winner's table row: one-hot / grouped-one-hot matmuls
-# (MXU-friendly VJP); see raytpu.ops.soa.gather_cols
+# whose VJP is a matmul; see raytpu.ops.soa.gather_cols
 _gather_cols = soa.gather_cols
 
 
@@ -54,8 +55,8 @@ def detached_closest_hit(scene, ro, rd, tmin, onehot_max: int = 4096,
 
     ``min_t_fn(scene, ro, rd, tmin) -> (t, global idx)`` overrides the dense
     jnp t-matrix for the (detached, forward-only) winner search — e.g. the
-    chunk-culled Pallas ``scene_min_t`` on big meshes; because the search is
-    under ``stop_gradient``, the override needs no VJP.
+    culled sweep's ``raytpu.render.sweep.min_t`` on big meshes; because the
+    search is under ``stop_gradient``, the override needs no VJP.
     """
     sg = jax.lax.stop_gradient
     ro_c, rd_c = soa.comps(ro), soa.comps(rd)
@@ -96,7 +97,7 @@ def detached_closest_hit(scene, ro, rd, tmin, onehot_max: int = 4096,
         c_sph, r = (cr[0], cr[1], cr[2]), cr[3]
         L = soa.sub(c_sph, ro_c)
         proj = soa.dot(rd_c, L)
-        perp2 = soa.dot(L, L) - proj * proj
+        perp2 = intersect.sphere_perp2(L, proj, rd_c)
         # double-where: the sqrt argument of non-winning lanes is clamped so
         # its unbounded partial never enters the VJP (CLAUDE.md grad safety)
         arg = jnp.where(in_s, r * r - perp2, 1.0)

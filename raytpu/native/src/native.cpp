@@ -3,9 +3,9 @@
 // The reference's native components (OBJ parser Utils.h:377-451, per-frame
 // binned-SAH BVH builder DataTypes.h:294-483, SDL timer Timer.cpp, BMP
 // screenshot Renderer.cpp:184-187) map to host-side scene preparation here:
-// the TPU consumes flat SoA arrays, so the native layer parses assets,
-// spatially orders triangles (Morton / SAH-BVH leaf order) so the Pallas
-// kernels' 128-triangle chunks have tight bounding boxes for chunk culling,
+// the device consumes flat SoA arrays, so the native layer parses assets,
+// spatially orders triangles (Morton / SAH-BVH leaf order) so the culled
+// sweep's triangle groups have tight bounding boxes for group culling,
 // and provides the timer + image IO around the device loop.
 //
 // Built as a plain shared library; Python binds via ctypes (no pybind11).
@@ -165,7 +165,7 @@ void rt_morton_order(const float* tri_verts, int num_tris, int32_t* perm_out) {
 
 // ---------------------------------------------------------------------------
 // Binned-SAH BVH builder (flat nodes, left child = leftNode, right = +1).
-// TPU-side consumption: either full traversal order, or leaf order as the
+// Device-side consumption: either full traversal order, or leaf order as the
 // triangle permutation for chunked culling.
 // ---------------------------------------------------------------------------
 

@@ -1,18 +1,19 @@
-"""Acceleration-structure layer: TPU-friendly chunk culling.
+"""Acceleration-structure layer: per-tile culled triangle groups.
 
 The reference rebuilds a recursive SAH BVH per mesh per frame and walks it
 per ray (reference: source/DataTypes.h:294-483, source/Utils.h:246-288).
-Pointer-chasing BVHs are hostile to the VPU, so the TPU-native equivalent is
-**chunked culling** (SURVEY.md §7.8b):
+Per-ray pointer chasing diverges across a warp, so the data-parallel
+equivalent here is **group culling** (SURVEY.md §7.8b):
 
-  * triangles are reordered once by Morton code of their centroid (native
-    C++ sort when available) so each 128-triangle kernel chunk is spatially
-    coherent with a tight AABB;
-  * per chunk, an AABB is computed (refreshed per frame in XLA — the analog
+  * triangles are reordered once into the native binned-SAH builder's leaf
+    order (Morton order as the fallback), so each group of ``SAH_LEAF``
+    consecutive triangles is spatially coherent with a tight AABB;
+  * per group, an AABB is computed (refreshed per frame in XLA — the analog
     of the reference's per-frame BVH rebuild, but O(T) data-parallel);
-  * the Pallas min-t kernel slab-tests each (ray tile, chunk) pair with
-    conservative interval arithmetic on the tile's ray bounds and skips the
-    whole Möller–Trumbore block when the chunk cannot intersect.
+  * per (ray tile, group) pair a conservative slab/segment test decides
+    whether the group can be hit, and each tile gets a worklist of the
+    groups that pass (``chunk_worklist``).  The culled sweep
+    (raytpu/render/sweep.py) then tests only those groups.
 
 This keeps the divergence-free data-parallel shape while skipping most of
 the O(rays x triangles) work for large meshes.
@@ -21,18 +22,15 @@ the O(rays x triangles) work for large meshes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from raytpu.core.types import Scene, Triangles
 
-CHUNK = 128  # triangles per cull chunk == Pallas lane count
-SAH_LEAF = 8  # builder leaf size == the mega2 cull-group size: every G=8
-#             group IS a SAH box (leaf=64 slices straddle boxes).  Measured
-#             (v5e, same-window, floor-adjusted): bunny fwd -15%, optional
-#             -9% vs leaf=64 (probes/probe_leaf_tpu.py, probe_leaforder.py)
+SAH_LEAF = 8  # builder leaf size == the sweep's cull-group size, so every
+#             group IS one SAH box (see PERF.md for its measurement)
 
 
 def spatial_permutation(tri_verts: np.ndarray) -> np.ndarray:
@@ -96,9 +94,9 @@ def reorder_scene_triangles(scene: Scene) -> Scene:
     under rigid per-mesh animation a group's spatial coherence is then
     pose-invariant — the per-frame AABB refresh (chunk_bounds) keeps boxes
     tight for any yaw/translation, and no group's box can balloon from
-    spanning two independently-moving meshes.  Measured: pass rates are flat
-    over a full 2pi yaw on bunny/optional (probes/probe_anim.py).  This is
-    the TPU analog of the reference's per-frame BVH rebuild
+    spanning two independently-moving meshes.  Counted: pass rates are flat
+    over a full 2pi yaw on bunny/optional.  This is the data-parallel analog
+    of the reference's per-frame BVH rebuild
     (reference: source/DataTypes.h:231-235) at zero per-frame cost.
 
     NOTE: reordering changes the reference's iteration-order tie-break for
@@ -136,7 +134,7 @@ def reorder_scene_triangles(scene: Scene) -> Scene:
     return dataclasses.replace(scene, triangles=tri2, meshes=meshes)
 
 
-def chunk_bounds(tris: Triangles, chunk: int = CHUNK):
+def chunk_bounds(tris: Triangles, chunk: int = SAH_LEAF):
     """Per-chunk AABBs (nc, 3)+(nc, 3), padding chunks with +/-inf-free
     degenerate bounds.  Pure jnp: recomputed per frame under jit (the
     data-parallel analog of the reference's per-frame BVH rebuild)."""
@@ -158,35 +156,14 @@ def chunk_bounds(tris: Triangles, chunk: int = CHUNK):
     return lo, hi
 
 
-def chunk_soft_slack(tris: Triangles, beta: float, chunk: int = CHUNK,
-                     support: float = 20.0):
-    """(nc,) world-space AABB expansion covering the soft sigmoid's support.
-
-    A ray passing distance ``d`` outside a triangle of extent ``E`` has
-    barycentric margin ~ ``-d/E`` and contributes ``sigmoid(-beta*d/E)`` to
-    the soft transmittance (raytpu/ops/intersect.py:345).  Clipping where
-    ``beta*margin < -support`` (~2e-9 occlusion) needs chunk AABBs expanded
-    by ``support/beta * max_tri_extent``; extent is the per-triangle AABB
-    diagonal, maxed per chunk.
-    """
-    T = tris.count
-    nc = -(-T // chunk)
-    pad = nc * chunk - T
-    lo = jnp.minimum(jnp.minimum(tris.v0, tris.v1), tris.v2)
-    hi = jnp.maximum(jnp.maximum(tris.v0, tris.v1), tris.v2)
-    diag = jnp.sqrt(jnp.sum((hi - lo) ** 2, axis=1))  # (T,)
-    diag = jnp.pad(diag, (0, pad), constant_values=0.0).reshape(nc, chunk)
-    return (support / beta) * diag.max(axis=1)
-
-
 def cull_matrix(rb, chunk_lo, chunk_hi, tmin):
     """(nr, nc) f32 matrix: 1.0 where ray tile i may hit chunk j, else 0.0.
 
-    Computed fully in XLA (vectorized over all tile/chunk pairs) so the
-    Pallas kernel's per-step predicate is a single SMEM load.  Combines the
-    interval slab test (strong for diverging primary tiles) with the
+    Computed fully in XLA, vectorized over all tile/chunk pairs.  Combines
+    the interval slab test (strong for diverging primary tiles) with the
     segment-union AABB overlap (strong for shadow rays converging on one
-    light); both conservative.
+    light); both conservative.  The eight slab candidates are folded with
+    elementwise min/max so no (8, nr, nc, 3) intermediate is materialized.
     """
     omin, omax = rb[:, None, 0:3], rb[:, None, 3:6]  # (nr,1,3)
     dmin, dmax = rb[:, None, 6:9], rb[:, None, 9:12]
@@ -198,11 +175,9 @@ def cull_matrix(rb, chunk_lo, chunk_hi, tmin):
     sign_safe = (dmin > 0.0) | (dmax < 0.0)
     inv1 = 1.0 / dmin
     inv2 = 1.0 / dmax
-    cands = jnp.stack(
-        [(b - o) * inv for b in (lo, hi) for o in (omin, omax) for inv in (inv1, inv2)]
-    )  # (8, nr, nc, 3)
-    ax_lo = jnp.where(sign_safe, cands.min(axis=0), -3.0e38)
-    ax_hi = jnp.where(sign_safe, cands.max(axis=0), 3.0e38)
+    cands = [(b - o) * inv for b in (lo, hi) for o in (omin, omax) for inv in (inv1, inv2)]
+    ax_lo = jnp.where(sign_safe, functools.reduce(jnp.minimum, cands), -3.0e38)
+    ax_hi = jnp.where(sign_safe, functools.reduce(jnp.maximum, cands), 3.0e38)
     t_lo = jnp.maximum(ax_lo.max(axis=-1), tmin)  # (nr, nc)
     t_hi = jnp.minimum(ax_hi.min(axis=-1), tmax_t[:, :, 0])
     slab_ok = t_hi >= t_lo
@@ -214,8 +189,28 @@ def cull_matrix(rb, chunk_lo, chunk_hi, tmin):
     return (slab_ok & seg_ok).astype(jnp.float32)
 
 
+def chunk_worklist(cull):
+    """(nr, nc) cull matrix -> per-tile worklist of passing chunk ids.
+
+    Returns ``(worklist (nr, nc) i32, count (nr,) i32)``: each row starts
+    with its passing chunk ids in ascending order (so a strict-< min-fold
+    over the worklist keeps the reference's iteration-order tie-break);
+    entries past ``count`` are 0.  A prefix sum gives each passing chunk
+    its slot and one scatter writes it — no sort.
+    """
+    passing = cull > 0.0
+    count = jnp.sum(passing, axis=1, dtype=jnp.int32)
+    nr, nc = cull.shape
+    slot = jnp.cumsum(passing, axis=1, dtype=jnp.int32) - 1
+    slot = jnp.where(passing, slot, nc)  # out of range: dropped
+    rows = jnp.broadcast_to(jnp.arange(nr, dtype=jnp.int32)[:, None], (nr, nc))
+    ids = jnp.broadcast_to(jnp.arange(nc, dtype=jnp.int32)[None, :], (nr, nc))
+    worklist = jnp.zeros((nr, nc), jnp.int32).at[rows, slot].set(ids, mode="drop")
+    return worklist, count
+
+
 def shadow_cull_matrix(ro, ld, mag, light_pos, is_point, lo, hi, tmin,
-                       tile: int = 1024):
+                       tile: int):
     """Per-(tile, group) cull for the shadow rays toward ONE light.
 
     Combines the forward slab/segment test on the actual rays with — for
@@ -223,9 +218,9 @@ def shadow_cull_matrix(ro, ld, mag, light_pos, is_point, lo, hi, tmin,
     segment ends at the light, an exact point, so the interval slab on the
     reversed rays {light -> origin box, t in [0, 1]} carries no origin-box
     slack and is much tighter than the forward test, whose origin interval
-    and direction interval decorrelate (measured, probes/probe_conecull.py:
-    shadow group pass rate bunny 39.8 -> 29.6%, optional 31.1 -> 21.0%;
-    a cone-vs-sphere test added almost nothing on top).  Both tests are
+    and direction interval decorrelate (counted at 1024-ray tiles: shadow
+    group pass rate bunny 39.8 -> 29.6%, optional 31.1 -> 21.0%; a
+    cone-vs-sphere test added almost nothing on top).  Both tests are
     conservative; the reversed one is skipped (all-pass) for directional
     lights, whose forward direction interval is already a single vector.
     """
@@ -240,150 +235,10 @@ def shadow_cull_matrix(ro, ld, mag, light_pos, is_point, lo, hi, tmin,
     return cull * jnp.where(is_point, rev, jnp.ones_like(rev))
 
 
-def camera_tile_bounds(camera, W: int, H: int, tiled: bool, tile: int = 1024):
-    """Per-tile PRIMARY ray bounds (nt, 20) computed analytically from the
-    camera — O(tiles) math instead of materializing O(rays) direction arrays
-    (generate_rays + ray_tile_bounds measured ~1.5 ms/frame at 640x480: every
-    op on an (R, 3) array wastes 125/128 lanes; probes/probe_wlxla.py).
-
-    The unnormalized direction ``d = cx*right + cy*up + fwd`` is bilinear in
-    the pixel coords, so per-component extrema over a pixel rectangle are at
-    its corners; with an orthonormal basis ``|d|^2 = 1 + cx^2 + cy^2``, whose
-    extrema over the rectangle are exact.  Normalized-direction intervals
-    follow by interval division (conservative), then a 1e-6 relative widen
-    for fp safety.  Same (nt, 20) layout as ``ray_tile_bounds``.
-    """
-    nt = -(-(W * H) // tile)
-    i = jnp.arange(nt, dtype=jnp.float32)
-    if tiled:
-        TX = W // 32
-        tx = jnp.mod(i, TX)
-        ty = jnp.floor_divide(i, TX)
-        px0, px1 = tx * 32.0, tx * 32.0 + 31.0
-        py0, py1 = ty * 32.0, ty * 32.0 + 31.0
-    else:
-        rid0 = i * tile
-        rid1 = jnp.minimum(rid0 + tile - 1, float(W * H - 1))
-        full_rows = (rid1 - rid0 + 1.0) >= W  # spans >= one full row
-        px0 = jnp.where(full_rows, 0.0, jnp.mod(rid0, W))
-        px1 = jnp.where(full_rows, float(W - 1), jnp.mod(rid1, W))
-        # non-full-row tiles that still wrap a row boundary span all columns
-        wraps = (~full_rows) & (px1 < px0)
-        px0 = jnp.where(wraps, 0.0, px0)
-        px1 = jnp.where(wraps, float(W - 1), px1)
-        py0 = jnp.floor_divide(rid0, W)
-        py1 = jnp.floor_divide(rid1, W)
-
-    fov = camera.fov_scale
-    aspect = jnp.float32(W / H)
-    cx0 = (2.0 * (px0 + 0.5) / W - 1.0) * aspect * fov
-    cx1 = (2.0 * (px1 + 0.5) / W - 1.0) * aspect * fov
-    cy1 = (1.0 - 2.0 * (py0 + 0.5) / H) * fov  # py0 -> larger cy
-    cy0 = (1.0 - 2.0 * (py1 + 0.5) / H) * fov
-    cx_lo, cx_hi = jnp.minimum(cx0, cx1), jnp.maximum(cx0, cx1)
-    cy_lo, cy_hi = jnp.minimum(cy0, cy1), jnp.maximum(cy0, cy1)
-
-    right, up, fwd = camera.onb()
-
-    def axis_interval(r, u, f):
-        a_lo = jnp.minimum(cx_lo * r, cx_hi * r) + jnp.minimum(cy_lo * u, cy_hi * u) + f
-        a_hi = jnp.maximum(cx_lo * r, cx_hi * r) + jnp.maximum(cy_lo * u, cy_hi * u) + f
-        return a_lo, a_hi
-
-    d_lo, d_hi = zip(*(axis_interval(right[k], up[k], fwd[k]) for k in range(3)))
-    d_lo = jnp.stack(d_lo, axis=1)  # (nt, 3)
-    d_hi = jnp.stack(d_hi, axis=1)
-
-    def minabs(lo, hi):
-        return jnp.where((lo <= 0.0) & (hi >= 0.0), 0.0,
-                         jnp.minimum(jnp.abs(lo), jnp.abs(hi)))
-
-    n2_lo = 1.0 + minabs(cx_lo, cx_hi) ** 2 + minabs(cy_lo, cy_hi) ** 2
-    n2_hi = 1.0 + jnp.maximum(cx_lo**2, cx_hi**2) + jnp.maximum(cy_lo**2, cy_hi**2)
-    dmin, dmax = _div_interval(d_lo, d_hi, n2_lo[:, None], n2_hi[:, None])
-
-    o = jnp.broadcast_to(camera.origin[None, :], (nt, 3))
-    z3 = jnp.zeros((nt, 3), jnp.float32)
-    return jnp.concatenate([
-        o, o, dmin, dmax,
-        jnp.full((nt, 1), 3.0e38, jnp.float32), jnp.zeros((nt, 1), jnp.float32),
-        z3, z3,
-    ], axis=1)
-
-
-def _div_interval(v_lo, v_hi, n2_lo, n2_hi, eps: float = 1e-6):
-    """[v_lo, v_hi] / sqrt([n2_lo, n2_hi]) as a conservative interval,
-    widened by ``eps`` relative (inputs broadcast; norms positive)."""
-    inv_lo = jax.lax.rsqrt(jnp.maximum(n2_hi, 1e-30))
-    inv_hi = jax.lax.rsqrt(jnp.maximum(n2_lo, 1e-30))
-    lo = jnp.minimum(v_lo * inv_lo, v_lo * inv_hi)
-    hi = jnp.maximum(v_hi * inv_lo, v_hi * inv_hi)
-    margin = eps * jnp.maximum(jnp.abs(lo), jnp.abs(hi)) + 1e-12
-    return lo - margin, hi + margin
-
-
-def light_shadow_cull_from_aabb(aabb_lo, aabb_hi, light_pos, light_dir,
-                                is_point, glo, ghi, tmin):
-    """Per-(tile, group) shadow cull from per-TILE shadow-origin AABBs —
-    the O(tiles) replacement for building (R, 3) shadow-ray arrays in XLA
-    (``shadow_cull_matrix`` over per-ray ``p_off`` measured ~1.5 ms/frame).
-    The closest-hit kernel emits the AABBs (min/max of offset hit points,
-    masked to hit lanes); bounds here are conservative supersets of the
-    per-ray ones, so the render is unchanged — only pass rates can differ.
-
-    Point lights: direction interval ``(L - box)/|L - p|`` by interval
-    division; segment union = box ∪ {L}; the light-anchored REVERSED slab
-    {L -> box, t in [0, 1]} is exact interval math.  Directional lights:
-    the forward direction is a single exact vector.
-    """
-    nt = aabb_lo.shape[0]
-    z3 = jnp.zeros((nt, 3), jnp.float32)
-    o_lo, o_hi = aabb_lo, aabb_hi
-    empty = ~(o_lo[:, 0] <= o_hi[:, 0])  # all-miss tile
-    is_pt = jnp.asarray(is_point)  # traced under jit: select, don't branch
-
-    # point-light branch: direction interval (L - box)/|L - p|
-    L = jnp.broadcast_to(light_pos[None, :], (nt, 3))
-    diff_lo = light_pos[None, :] - o_hi
-    diff_hi = light_pos[None, :] - o_lo
-    straddle = (diff_lo <= 0.0) & (diff_hi >= 0.0)
-    mina = jnp.where(straddle, 0.0, jnp.minimum(jnp.abs(diff_lo), jnp.abs(diff_hi)))
-    maxa = jnp.maximum(jnp.abs(diff_lo), jnp.abs(diff_hi))
-    n2_lo = jnp.sum(mina**2, axis=1, keepdims=True)
-    n2_hi = jnp.sum(maxa**2, axis=1, keepdims=True)
-    p_dmin, p_dmax = _div_interval(diff_lo, diff_hi, n2_lo, n2_hi)
-    p_dmin = jnp.clip(p_dmin, -1.0, 1.0)
-    p_dmax = jnp.clip(p_dmax, -1.0, 1.0)
-    p_tmx = jnp.sqrt(n2_hi) * (1.0 + 1e-6)
-
-    # directional branch: a single exact direction, unbounded segment
-    dm = jnp.broadcast_to(-light_dir[None, :], (nt, 3))
-
-    sel = lambda a, b: jnp.where(is_pt, a, b)
-    rb = jnp.concatenate([
-        o_lo, o_hi, sel(p_dmin, dm), sel(p_dmax, dm),
-        sel(p_tmx, jnp.full((nt, 1), 3.0e38, jnp.float32)),
-        sel(jnp.ones((nt, 1), jnp.float32), jnp.zeros((nt, 1), jnp.float32)),
-        sel(L, z3), sel(L, z3),
-    ], axis=1)
-    cull = cull_matrix(rb, glo, ghi, tmin)
-
-    # light-anchored reversed slab (point lights only): origins at the light
-    # (exact), directions span box - L, t in [0, 1] covers every segment
-    rb_rev = jnp.concatenate([
-        L, L, -diff_hi, -diff_lo,
-        jnp.ones((nt, 1), jnp.float32), jnp.ones((nt, 1), jnp.float32),
-        o_lo, o_hi,
-    ], axis=1)
-    rev = cull_matrix(rb_rev, glo, ghi, 0.0)
-    cull = cull * jnp.where(is_pt, rev, jnp.ones_like(rev))
-    return jnp.where(empty[:, None], 0.0, cull)
-
-
-def ray_tile_bounds(ro, rd, tmax, tile: int = 128):
-    """Per-ray-tile conservative bounds (nr, 21):
+def ray_tile_bounds(ro, rd, tmax, tile: int):
+    """Per-ray-tile conservative bounds (nr, 20):
     [omin3, omax3, dmin3, dmax3, tmax_max, seg_valid, emin3, emax3]
-    for the kernel's scalar chunk-culling tests.
+    for the per-(tile, group) culling tests.
 
     Two complementary rejection tests are supported downstream:
       * interval slab test on [omin,omax] x [dmin,dmax] — strong for
@@ -420,3 +275,23 @@ def ray_tile_bounds(ro, rd, tmax, tile: int = 128):
     return jnp.concatenate(
         [omin, omax, dmin, dmax, tmx[:, None], seg_valid[:, None], emin, emax], axis=1
     )
+
+
+def tile_fold(x, h: int, w: int):
+    """Row-major (H*W, C) pixel rows -> 32x32-pixel-block order (blocks
+    row-major, pixels row-major inside a block), so every run of 2^k <= 1024
+    consecutive rays is a compact screen rectangle with a tight direction
+    cone — what makes per-tile culling effective.  Pure reshape/transpose;
+    needs H and W divisible by 32 (``tile_foldable``)."""
+    c = x.shape[-1]
+    return x.reshape(h // 32, 32, w // 32, 32, c).transpose(0, 2, 1, 3, 4).reshape(-1, c)
+
+
+def tile_unfold(x, h: int, w: int):
+    """Inverse of ``tile_fold`` for (H*W, C) arrays."""
+    c = x.shape[-1]
+    return x.reshape(h // 32, w // 32, 32, 32, c).transpose(0, 2, 1, 3, 4).reshape(h * w, c)
+
+
+def tile_foldable(h: int, w: int) -> bool:
+    return h % 32 == 0 and w % 32 == 0

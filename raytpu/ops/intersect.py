@@ -8,10 +8,8 @@ replaces the sequential strict-< closest-hit update
 
 Layout: public APIs take/return (R, 3) ray arrays and (R, N) t-matrices, but
 all internal math runs components-major — (R,) per-component ray arrays and
-(N, R) primitive x ray matrices — so the TPU's 128-lane minor dimension is
-the ray axis instead of a 3- or N-wide one (see raytpu/ops/soa.py; measured
-~1.1x on the 14-prim 640x480 forward and ~6.7x on the 297-triangle bunny
-fwd+bwd, same-window A/B, PERF.md round 2).
+(N, R) primitive x ray matrices — so the minor (contiguous) dimension is the
+ray axis instead of a 3- or N-wide one (see raytpu/ops/soa.py).
 
 Conventions:
   * rays: ``ro`` (R,3) origins, ``rd`` (R,3) unit directions
@@ -28,7 +26,6 @@ from dataclasses import dataclass
 import jax
 import jax.numpy as jnp
 
-from raytpu.core import math3d
 from raytpu.core.types import Scene
 from raytpu.ops import soa
 
@@ -51,6 +48,19 @@ def _row(x):
 # ---------------------------------------------------------------------------
 
 
+def sphere_perp2(L, proj, rd):
+    """Squared distance from a sphere's center to the ray, ``|L - proj d|^2``.
+
+    The reference's ``L.L - proj^2`` (reference: source/Utils.h:52-71)
+    subtracts two numbers of size |L|^2 that agree to within r^2, so most of
+    its float32 digits cancel, and whether the compiler fuses the multiply
+    into the subtraction (an FMA) moves the hit point by more than the
+    shadow-ray offset: shadow acne whose pattern differs between CPU and
+    GPU.  The perpendicular vector keeps the error at the size of r."""
+    f = soa.sub(L, soa.scale(rd, proj))
+    return soa.dot(f, f)
+
+
 def _sphere_t_T(spheres, ro, rd, tmin, tmax):
     """Geometric sphere test, near root only — rays starting inside a sphere
     miss it, exactly like the reference (reference: source/Utils.h:52-71)."""
@@ -58,7 +68,7 @@ def _sphere_t_T(spheres, ro, rd, tmin, tmax):
     r = spheres.radius[:, None]  # (S,1)
     L = soa.sub(c, ro)  # (S,R)
     proj = soa.dot(rd, L)
-    perp2 = soa.dot(L, L) - proj * proj
+    perp2 = sphere_perp2(L, proj, rd)
     r2 = r * r
     inside = r2 >= perp2
     # double-where keeps sqrt's VJP finite on miss lanes without changing
@@ -201,8 +211,7 @@ def closest_hit(scene: Scene, ro, rd, tmin) -> HitRecords:
     ro_c, rd_c = soa.comps(ro), soa.comps(rd)
     tmat = _scene_t_matrix_T(scene, ro_c, rd_c, tmin, INF, shadow_pass=False)
     idx = jnp.argmin(tmat, axis=0)  # first minimum wins ties
-    # the winning t IS the min — never gather it (TPU gathers are scalar-slow)
-    t = jnp.min(tmat, axis=0)
+    t = jnp.min(tmat, axis=0)  # the winning t IS the min: no gather needed
     return assemble_hit_records(scene, ro, rd, t, idx)
 
 
@@ -214,74 +223,75 @@ def assemble_hit_records(scene: Scene, ro, rd, t, idx) -> HitRecords:
     """Build HitRecords from a per-ray winning (t, global primitive index)
     where the index runs over the sphere→plane→triangle concatenation.
 
-    The winning primitive's payload (normal/center + material id) is gathered
-    with ONE masked one-hot matmul against a packed per-primitive table: TPU
-    dynamic row gathers are scalar-slow (measured ~10 ms of a 15 ms frame at
-    640x480), while the one-hot contraction rides the MXU, and its transpose
-    (the VJP) is another matmul instead of a serialized scatter-add.  The
-    matmul is laid out components-major — ``(4, C) @ (C, R)`` — so neither
-    operand nor result has a narrow minor dim (TPU pads the minor dim to 128
-    lanes: a materialized (R, 4) costs 32x its data; this orientation took
-    the assemble stage from ~3.3 ms to ~0.1 ms at 640x480, PERF.md round 2).
-    Scenes whose (C, R) one-hot would exceed ``_ONEHOT_MAX_ELEMS`` gather
-    through the grouped two-level one-hot instead (``soa.gather_cols``) —
-    ~G x less HBM traffic, still all matmuls.
+    The winning primitive's payload (center for spheres, normal for planes
+    and triangles, plus the material id) is gathered with a masked one-hot
+    matmul at HIGHEST precision against a packed (C, 4) table, laid out
+    components-major — ``(4, C) @ (C, R)``.  Scenes whose (C, R) one-hot
+    would exceed ``_ONEHOT_MAX_ELEMS`` gather through the grouped two-level
+    one-hot instead (``soa.gather_cols``).  Whether a plain indexed gather
+    is faster on the GPU is not measured yet (ROADMAP).
     """
     hit = jnp.isfinite(t)
-    t_safe = jnp.where(hit, t, 0.0)
-    ro_c, rd_c = soa.comps(ro), soa.comps(rd)
-    p_c = soa.add(ro_c, soa.scale(rd_c, t_safe))
-    point = soa.pack(*p_c)
-
     S, P = scene.spheres.count, scene.planes.count
     T = scene.triangles.count
     C = S + P + T
 
-    if C:
-        rows = []
-        if S:  # sphere rows carry the CENTER (normal derived below)
-            rows.append(
-                jnp.concatenate(
-                    [scene.spheres.center, scene.spheres.material[:, None].astype(t.dtype)],
-                    axis=1,
-                )
+    if not C:
+        ro_b = jnp.broadcast_to(ro, rd.shape)
+        z = jnp.zeros_like(t)
+        return hit_records_from_payload(ro_b, rd, t, idx, jnp.zeros_like(rd), z, 0)
+    rows = []
+    if S:  # sphere rows carry the CENTER (normal derived below)
+        rows.append(
+            jnp.concatenate(
+                [scene.spheres.center, scene.spheres.material[:, None].astype(t.dtype)],
+                axis=1,
             )
-        if P:
-            rows.append(
-                jnp.concatenate(
-                    [scene.planes.normal, scene.planes.material[:, None].astype(t.dtype)],
-                    axis=1,
-                )
-            )
-        if T:
-            tr = scene.triangles
-            rows.append(
-                jnp.concatenate([tr.normal, tr.material[:, None].astype(t.dtype)], axis=1)
-            )
-        table = jnp.concatenate(rows, axis=0)  # (C, 4)
-        # single one-hot within the HBM cap; grouped two-level beyond it
-        out = soa.gather_cols(
-            table, idx, hit, max(1, _ONEHOT_MAX_ELEMS // max(t.shape[0], 1))
-        )  # (4, R)
-        v_c = (out[0], out[1], out[2])  # center (spheres) or normal (planes/tris)
-        # material ids are small ints: exact through the f32 contraction
-        material = jnp.round(out[3]).astype(jnp.int32)
-        if S:
-            in_s = (idx < S) & hit
-            # normal normalized after selection (reference: source/Scene.cpp:40);
-            # double-where: keep the unselected normalize argument away from 0
-            d_c = soa.where(in_s, soa.sub(p_c, v_c), (1.0, 1.0, 1.0))
-            n_c = soa.where(in_s, soa.normalize_safe(d_c), v_c)
-        else:
-            n_c = v_c
-        return HitRecords(
-            hit=hit, t=jnp.where(hit, t, INF), point=point,
-            normal=soa.pack(*n_c), material=material,
         )
+    if P:
+        rows.append(
+            jnp.concatenate(
+                [scene.planes.normal, scene.planes.material[:, None].astype(t.dtype)],
+                axis=1,
+            )
+        )
+    if T:
+        tr = scene.triangles
+        rows.append(
+            jnp.concatenate([tr.normal, tr.material[:, None].astype(t.dtype)], axis=1)
+        )
+    table = jnp.concatenate(rows, axis=0)  # (C, 4)
+    # single one-hot within the HBM cap; grouped two-level beyond it
+    out = soa.gather_cols(
+        table, idx, hit, max(1, _ONEHOT_MAX_ELEMS // max(t.shape[0], 1))
+    )  # (4, R)
+    return hit_records_from_payload(
+        jnp.broadcast_to(ro, rd.shape), rd, t, idx, out[:3].T, out[3], S)
 
+
+def hit_records_from_payload(ro_b, rd, t, idx, vec, mat, n_spheres: int) -> HitRecords:
+    """HitRecords from a winner's (t, global id) and payload: ``vec`` (R, 3)
+    is the sphere's center or the plane's/triangle's normal, ``mat`` (R,)
+    the material id as f32.  The one place the payload becomes records —
+    shared by ``assemble_hit_records`` and the culled sweep, which emits the
+    same payload from its fold registers (raytpu/render/sweep.py)."""
+    hit = jnp.isfinite(t)
+    t_safe = jnp.where(hit, t, 0.0)
+    ro_c, rd_c = soa.comps(ro_b), soa.comps(rd)
+    p_c = soa.add(ro_c, soa.scale(rd_c, t_safe))
+    v_c = soa.comps(vec)
+    if n_spheres:
+        in_s = (idx < n_spheres) & hit
+        # normal normalized after selection (reference: source/Scene.cpp:40);
+        # double-where: keep the unselected normalize argument away from 0
+        d_c = soa.where(in_s, soa.sub(p_c, v_c), (1.0, 1.0, 1.0))
+        n_c = soa.where(in_s, soa.normalize_safe(d_c), v_c)
+    else:
+        n_c = v_c
+    # material ids are small ints: exact in f32
     return HitRecords(
-        hit=hit, t=jnp.where(hit, t, INF), point=point,
-        normal=jnp.zeros_like(point), material=jnp.zeros(t.shape[0], jnp.int32),
+        hit=hit, t=jnp.where(hit, t, INF), point=soa.pack(*p_c),
+        normal=soa.pack(*n_c), material=jnp.round(mat).astype(jnp.int32),
     )
 
 
@@ -309,7 +319,7 @@ def soft_transmittance(scene: Scene, ro, rd, tmin, tmax, beta):
         r = scene.spheres.radius[:, None]
         L = soa.sub(c, ro_c)  # (S,R)
         proj = soa.dot(rd_c, L)
-        perp2 = soa.dot(L, L) - proj * proj
+        perp2 = sphere_perp2(L, proj, rd_c)
         r2 = r * r
         margin = (r2 - perp2) / r2  # >0 when the ray core passes inside
         inside = margin > 0.0

@@ -113,17 +113,17 @@ def shade(materials: Materials, mat_idx, n, l, v):
     as the reference-pinned array BRDFs above, on (R,)-shaped per-component
     arrays so the lane axis is the ray axis, not the 3-wide color axis.
     """
-    # Per-ray material parameters via one-hot matmul instead of gathers:
-    # TPU dynamic gathers are scalar-slow, a (R, M) @ (M, 7) matmul rides
-    # the MXU (M = material count, tiny).
+    # Per-ray material parameters via a (R, M) @ (M, 7) one-hot matmul
+    # (M = material count, tiny) instead of a gather; whether a plain gather
+    # is faster on the GPU is not measured yet (ROADMAP).
     M = materials.count
     table = jnp.concatenate(
         [materials.kind.astype(jnp.float32)[:, None], materials.color, materials.params],
         axis=1,
     )  # (M, 7)
     onehot = (mat_idx[:, None] == jnp.arange(M, dtype=mat_idx.dtype)[None, :]).astype(jnp.float32)
-    # a one-hot contraction is a SELECT: force full precision so the MXU's
-    # default bf16 passes can't quantize material colors/params on TPU
+    # a one-hot contraction is a SELECT: force full precision so a TF32
+    # matmul can't quantize material colors/params
     vals = jnp.matmul(onehot, table, precision=jax.lax.Precision.HIGHEST)  # (R, 7)
     kind = vals[:, 0]  # compared against float literals below
     cr, cg, cb = vals[:, 1], vals[:, 2], vals[:, 3]

@@ -1,21 +1,18 @@
 """Component-major (structure-of-arrays) helpers for the jnp hot path.
 
-TPU vector registers are (8 sublanes, 128 lanes); an op on an (R, 3) array
-puts the 3-wide vector axis in the 128-lane minor dimension — ~2% lane
-utilization — and an (R, N) ray x primitive matrix with small N wastes lanes
-the same way.  Measured on v5e (PERF.md round 2): each O(R*N) stage of the
-640x480 jnp forward costs ~0.5 ms in (R, N) layout and is ~free when the
-same math runs on (R,)-shaped per-component arrays / (N, R) matrices whose
-MINOR dim is the ray axis.
+An op on an (R, 3) array puts the 3-wide vector axis in the minor
+(contiguous) dimension, and an (R, N) ray x primitive matrix with small N
+does the same: strided, narrow rows.  Running the same math on (R,)-shaped
+per-component arrays and (N, R) matrices whose MINOR dim is the ray axis
+keeps every elementwise op and reduction wide and contiguous.
 
 Convention: a "c3" is a tuple (x, y, z) of same-shape arrays.  Public APIs
 keep the (R, 3) array convention (pack/unpack pairs fuse away under jit);
 internals compute on c3 tuples.
 
-This is the XLA-level analog of the Pallas kernels' scalar-broadcast ray
-registers (raytpu/render/pallas_kernel.py) applied to the differentiable
-path, replacing the reference's per-pixel scalar Vector3 math
-(reference: source/Vector3.cpp) a second time — once for each layout regime.
+This is the XLA-level analog of the culled sweep's per-component ray
+registers (raytpu/render/sweep.py), replacing the reference's per-pixel
+scalar Vector3 math (reference: source/Vector3.cpp).
 """
 
 from __future__ import annotations
@@ -97,24 +94,22 @@ def gather_cols(table, li, mask, onehot_max: int = 4096):
     columns zeroed where ``~mask``.  ``li`` is detached (winner indices);
     gradients flow to ``table``.
 
-    TPU dynamic row gathers are scalar-slow and their VJP is a serialized
-    scatter-add, so the gather is expressed as detached one-hot matmuls
-    (the VJP is the transposed matmul, on the MXU):
+    An indexed row gather's VJP is a scatter-add, so the gather is
+    expressed as detached one-hot matmuls (the VJP is the transposed
+    matmul).  Whether a plain gather is faster on the GPU is not measured
+    yet (ROADMAP):
 
       * ``N <= onehot_max``: one (K, N) @ (N, R) contraction.
       * larger N: TWO-LEVEL grouped one-hot — rows are grouped G at a time
         (G = ceil(N / onehot_max), min 8), a (G*K, H) @ (H, R) contraction
         gathers the winner's whole G-row group, and a detached (G, R) slot
         one-hot selects within it.  HBM traffic is ~G x less than the full
-        one-hot (whose (N, R) matrix is what made big-T scenes fall back to
-        indexed gathers — measured ~6 ms of the optional scene's 11 ms
-        soft forward at 640x480, PERF.md round 2).
+        one-hot, whose (N, R) matrix would otherwise dominate big-T scenes.
     """
     N, K = table.shape
     sg = jax.lax.stop_gradient
     # a one-hot contraction is a SELECT: it must not round the table through
-    # the MXU's default bf16 passes (measured: visible payload-normal error
-    # on TPU at 74k tris — every f32 table value quantized to 8 mantissa bits)
+    # a reduced-precision matmul (TF32 on the GPU keeps ~10 mantissa bits)
     hp = jax.lax.Precision.HIGHEST
     if N <= onehot_max:
         oh = ((jnp.arange(N)[:, None] == li[None, :]) & mask[None, :]).astype(

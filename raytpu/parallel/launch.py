@@ -3,7 +3,7 @@
 The reference's one parallelism strategy actually executes every frame inside
 a single process (reference: source/Renderer.cpp:42-85).  This module is the
 cross-process analog that actually executes: every worker process calls
-``multihost.initialize`` (jax.distributed / Gloo on CPU, ICI+DCN on a pod),
+``multihost.initialize`` (jax.distributed; Gloo on CPU, NCCL on GPUs),
 builds the global ``pod_mesh``, renders a pixel+primitive-sharded frame and
 runs one psum'd sharded train step.  Two mesh layouts execute: the default
 pod layout (px across processes — the gradient psum and image gather cross
@@ -16,9 +16,9 @@ Two entry modes:
              --coordinator HOST:PORT --outdir DIR
   launcher:  python -m raytpu.parallel.launch --spawn N --outdir DIR
              (spawns N workers as subprocesses on this host and waits; used by
-             tests/test_multihost_2proc.py and the SCALING.json 2-process row)
+             tests/test_multihost_2proc.py)
 
-On a real pod every host runs the worker mode under its own scheduler; the
+On a real cluster every host runs the worker mode under its own scheduler; the
 ``--spawn`` launcher exists so a single dev box can execute the genuine
 multi-controller path (2+ OS processes, cross-process Gloo collectives) rather
 than only a virtual single-process mesh.
@@ -31,6 +31,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,7 +103,7 @@ def run_worker(process_id: int, num_processes: int, coordinator: str, outdir: st
     # ---- sharded render across processes (px spans processes) -----------
     scene_g = _globalize(scene_local, mesh)
     t0 = time.perf_counter()
-    img_g = render_image_sharded(scene_g, cfg, mesh, backend="jnp")
+    img_g = render_image_sharded(scene_g, cfg, mesh, sweep=False)
     img = _fetch_replicated(img_g, mesh)
     render_s = time.perf_counter() - t0
 
@@ -119,7 +120,7 @@ def run_worker(process_id: int, num_processes: int, coordinator: str, outdir: st
     mesh_x = Mesh(devs.T.copy(), axis_names=("px", "prim"))
     img_x = _fetch_replicated(
         render_image_sharded(_globalize(scene_local, mesh_x), cfg, mesh_x,
-                             backend="jnp"), mesh_x)
+                             sweep=False), mesh_x)
     render_xprim_identical = bool((img_x == ref).all())
 
     # ---- one psum'd sharded train step across processes -----------------
@@ -242,7 +243,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     if args.spawn:
-        results = spawn(args.spawn, args.outdir or "/tmp/raytpu_2proc",
+        results = spawn(args.spawn, args.outdir or tempfile.mkdtemp(prefix="raytpu_2proc"),
                         timeout=args.timeout, local_devices=args.local_devices)
         print(json.dumps(results, indent=1))
         ok = all(r["render_identical_to_single_process"]

@@ -1,10 +1,10 @@
-"""Multi-host runtime: jax.distributed init + pod-slice mesh construction.
+"""Multi-process runtime: jax.distributed init + global mesh construction.
 
 The reference is a single shared-memory process; its only 'collective' is a
-future-wait barrier (reference: source/Renderer.cpp:74-77).  The TPU-native
-equivalent is the JAX multi-controller runtime: every host runs this same
+future-wait barrier (reference: source/Renderer.cpp:74-77).  The multi-device
+equivalent is the JAX multi-controller runtime: every process runs this same
 program, ``jax.distributed.initialize`` wires the cluster, and meshes span
-all global devices with ICI-major axis order (SURVEY.md §5.8).
+all global devices (SURVEY.md §5.8).
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ from jax.sharding import Mesh
 def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None, process_id: Optional[int] = None):
     """Initialize the multi-host runtime (no-op for single process).
 
-    On TPU pods with standard env vars, bare ``jax.distributed.initialize()``
-    auto-discovers everything; arguments are for manual clusters.
+    Pass ``coordinator_address`` (e.g. ``localhost:<port>``),
+    ``num_processes`` and ``process_id`` explicitly: nothing in the
+    environment describes the cluster.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -37,11 +38,11 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
 
 
 def pod_mesh(prim: int = 1) -> Mesh:
-    """Global (px, prim) mesh over all devices of the pod slice.
-
-    The ``px`` (data-parallel) axis is laid out within-host first so the
-    high-traffic all-gather of hit records over ``prim`` stays on ICI and
-    only the low-volume image assembly crosses DCN.
+    """Global (px, prim) mesh over all devices of all processes, in
+    ``jax.devices()`` order: consecutive devices share a ``px`` row, so the
+    ``prim`` all-gather of hit records stays within a process where it can.
+    The cards of one host are joined all to all by NVLink, so within a host
+    the layout follows the algorithm alone.
     """
     devs = np.asarray(jax.devices())
     n = len(devs)

@@ -1,19 +1,22 @@
-"""Multi-chip sharding: the TPU-native replacement for the reference's
-CPU-thread pixel fan-out (reference: source/Renderer.cpp:42-92).
+"""Multi-device sharding: the replacement for the reference's CPU-thread
+pixel fan-out (reference: source/Renderer.cpp:42-92).
 
 Two composable axes over a ``jax.sharding.Mesh`` (SURVEY.md §2 parallelism
 checklist):
 
   * ``px``  — data parallelism over the pixel/ray grid (the analog of
-    PPL ``parallel_for`` chunking; each chip shades a contiguous ray block)
+    PPL ``parallel_for`` chunking; each device shades a contiguous ray block)
   * ``prim`` — primitive-array sharding ("model parallel" axis): triangles
-    are split across chips, each chip intersects its shard against the whole
+    are split across devices, each intersects its shard against the whole
     ray block, and per-shard closest-hit records are merged with an
     all-gather + lexicographic (t, priority) argmin — the ray-tracing cousin
     of tensor-parallel partial-sum reduction.
 
 Shadow occlusion reduces with a boolean ``any`` (pmax) over the prim axis.
-Everything runs under ``shard_map`` so collectives are explicit and ride ICI.
+Everything runs under ``shard_map`` so collectives are explicit; XLA hands
+them to NCCL on the GPU.  Each device runs the single-device route on its
+shard: when ``route.kind`` picks the culled sweep for the scene, the sweep
+serves every shard's closest hit and any-hit.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from raytpu.core import math3d
 from raytpu.core.types import RenderConfig, Scene
-from raytpu.ops import intersect
+from raytpu.ops import accel, intersect
+from raytpu.render import route, sweep as sweep_mod
 from raytpu.render.renderer import generate_rays, shade_rays
 
 
@@ -73,52 +77,22 @@ def _pad_triangles(tris, multiple):
 # ---------------------------------------------------------------------------
 
 
-def _mega2_fits(scene: Scene) -> bool:
-    """Per-chip shard within the mega2 SMEM/unroll budgets?"""
-    from raytpu.render import pallas_kernel as pk
-    from raytpu.render import pallas_soft as ps
-
-    return (
-        scene.triangles.count <= ps.STREAM_MAX_TRIS
-        and scene.spheres.count <= pk.MEGA2_MAX_UNROLL
-        and scene.planes.count <= pk.MEGA2_MAX_UNROLL
-        # the shadow kernels unroll per light: a >MAX_LIGHTS scene would
-        # build an over-unrolled kernel (compile blowup, not wrong pixels)
-        and scene.lights.count <= pk.MEGA2_MAX_LIGHTS
-        # streamed worklist SMEM bound (same as the forward router)
-        and scene.lights.count * -(-scene.triangles.count // 512)
-        <= pk.MEGA3_WL_SMEM_ENTRIES
-    )
-
-
-def _local_closest_hit(scene: Scene, ro, rd, tmin, tri_prio_offset, use_pallas: bool):
+def _local_closest_hit(scene: Scene, ro, rd, tmin, tri_prio_offset, use_sweep: bool,
+                       interpret: bool):
     """Closest hit over (all spheres, all planes, THIS shard's triangles),
     plus a global priority id so the merge reproduces the reference's
     iteration-order tie-break (sphere < plane < triangle, low index first).
 
-    ``use_pallas`` routes the per-chip query through the fused kernels: the
-    mega2 scalar-broadcast winner search (the layout that wins, PERF.md
-    round 2), DMA-streamed past its SMEM budget (mega3 layout), for any
-    shard up to STREAM_MAX_TRIS; only shards past that (or past the
-    sphere/plane/light unroll budgets) fall back to the jnp t-matrix.  The
-    (RT, CT) chunked ``pk.scene_min_t`` is no longer routed here — it
-    measured a 5-8x LOSS in this role (PERF.md round 2)."""
+    ``use_sweep`` runs the per-device query on the culled sweep, whose
+    kernel emits the winner's payload from its own registers."""
     S, Pn = scene.spheres.count, scene.planes.count
-    if use_pallas and _mega2_fits(scene):
-        from raytpu.render import pallas_soft as ps
-
-        ro_b = jnp.broadcast_to(ro, rd.shape)
-        # payload=True: the kernel emits the winner's (normal, material)
-        # from its own fold registers — no XLA one-hot payload assembly
-        # (bit-identical to assemble_hit_records; tests pin it)
-        t, idx, normal, mat = ps.scene_min_t_mega2(
-            scene, ro_b, rd, float(tmin), payload=True)
-        rec = ps.hit_records_from_payload(ro_b, rd, t, normal, mat)
+    ro_b = jnp.broadcast_to(ro, rd.shape)
+    if use_sweep:
+        t, idx, vec, mat = sweep_mod.closest_payload(scene, ro_b, rd, tmin, interpret)
+        rec = intersect.hit_records_from_payload(ro_b, rd, t, idx, vec, mat, S)
     else:
-        # jnp fallback for shards past the mega2/stream budgets: chunk rays so
-        # the (chunk, C) t-matrix stays bounded instead of materializing the
-        # full O(R*C) matrix per shard (ADVICE r4: that was an OOM cliff)
-        ro_b = jnp.broadcast_to(ro, rd.shape)
+        # chunk rays so the (chunk, C) t-matrix stays bounded instead of
+        # materializing the full O(R*C) matrix per shard
         R = rd.shape[0]
         C = max(scene.num_primitives, 1)
         chunk = max(1024, min(R, ((1 << 24) // C + 1023) // 1024 * 1024))
@@ -166,132 +140,57 @@ def _merge_records(rec: intersect.HitRecords, prio, axis: str):
 
 
 def _shade_rays_sharded(scene: Scene, ro, rd, config: RenderConfig, tri_prio_offset,
-                        prim_axis: str, use_pallas: bool):
+                        prim_axis: str, use_sweep: bool, interpret: bool):
     """shade_rays with the closest-hit/any-hit queries reduced over the
-    triangle-shard axis: the single-chip pipeline (including its fused Pallas
-    kernels when ``use_pallas``) runs per chip on the local triangle shard,
-    and per-shard winners merge with all_gather/pmax collectives."""
+    triangle-shard axis: the single-device pipeline runs per device on the
+    local triangle shard, and per-shard winners merge with all_gather/pmax
+    collectives."""
 
     def closest_fn(s, ro_b, rd_b, tmin):
-        rec_local, prio = _local_closest_hit(s, ro_b, rd_b, tmin, tri_prio_offset, use_pallas)
+        rec_local, prio = _local_closest_hit(s, ro_b, rd_b, tmin, tri_prio_offset,
+                                             use_sweep, interpret)
         return _merge_records(rec_local, prio, prim_axis)
 
     def any_fn(s, p, l, tmin, mag):
-        if use_pallas:
-            from raytpu.render import pallas_kernel as pk
-
-            occ_local = pk.any_hit_pallas(s, p, l, tmin, mag)
-        else:
-            occ_local = intersect.any_hit(s, p, l, tmin, mag)
+        occ_local = intersect.any_hit(s, p, l, tmin, mag)
         return jax.lax.pmax(occ_local.astype(jnp.int32), prim_axis) > 0
 
     def any_multi_fn(s, p, dirs, mags, tmin):
-        if _mega2_fits(s):
-            from raytpu.render import pallas_soft as ps
-
-            occ_local = ps.any_hit_lights_mega2(s, p, dirs, mags, float(tmin))
-        else:
-            from raytpu.render import pallas_kernel as pk
-
-            occ_local = pk.any_hit_lights_pallas(s, p, dirs, mags, tmin)
+        occ_local = sweep_mod.any_hit_lights(s, p, dirs, mags, tmin, interpret)
         return jax.lax.pmax(occ_local.astype(jnp.int32), prim_axis) > 0
 
     return shade_rays(
         scene, ro, rd, config,
         closest_fn=closest_fn,
         any_fn=any_fn,
-        any_multi_fn=any_multi_fn if use_pallas else None,
+        any_multi_fn=any_multi_fn if use_sweep else None,
     )
-
-
-def _fused_kind(scene: Scene, config: RenderConfig):
-    """Which fused whole-frame kernel family serves this scene on a px-only
-    mesh (None if out of budget) — delegates to the single-chip router
-    (pallas_kernel.route_kind) so the two can never silently diverge."""
-    from raytpu.render import pallas_kernel as pk
-
-    kind = pk.route_kind(scene, config)
-    # the mega3 band deliberately stays on the winner-search pipeline: a
-    # same-window A/B at bunny50k measured fused mega3 per chip SLOWER
-    # (71.9 vs 65.9 ms — big meshes are fold-bound, so the merge machinery
-    # is noise while the winner-search path's per-ray shadow culling is
-    # tighter than mega3's camera/tile-AABB culling).  The tile-range
-    # mega3 variant exists and is TPU-gated (sharded_px_fused_mega3) for
-    # when that trade changes; add "mega3" here to re-route.
-    return kind if kind in ("mega", "mega2") else None
-
-
-def _render_fused_px(scene: Scene, config: RenderConfig, mesh: Mesh, kind: str):
-    """px-only sharded render through the fused whole-frame kernels: each
-    chip runs the flagship single-chip megakernel/mega2/mega3 pipeline on
-    its contiguous 1024-ray tile range (raygen in-kernel via a tile
-    offset) — no winner-search/merge machinery, no cross-chip traffic
-    until the image gather.  Eliminates the sharded single-chip tax
-    (measured: per-chip == whole-frame megakernel, probe_fusedgap.py);
-    bit-identical to the whole-frame kernels because tiles are computed
-    independently either way."""
-    from raytpu.render import pallas_kernel as pk
-
-    H, W = config.height, config.width
-    R = H * W
-    nt = -(-R // 1024)
-    n_px = mesh.shape["px"]
-    tpc = -(-nt // n_px)  # tiles per chip (last chips may render garbage pads)
-    spec_rep = jax.tree_util.tree_map(lambda _: P(), scene)
-    fn = {"mega": pk.render_image_mega_f32,
-          "mega2": pk.render_image_mega2_f32,
-          "mega3": pk.render_image_mega3_f32}[kind]
-
-    @functools.partial(
-        shard_map, mesh=mesh, in_specs=(spec_rep,), out_specs=P("px", None),
-        check_vma=False,
-    )
-    def kern(scene_l):
-        tile0 = jax.lax.axis_index("px") * tpc
-        return fn(scene_l, config, tile0=tile0, tiles=tpc)
-
-    flat = kern(scene)[:R]  # (n_px*tpc*1024, 3) feed order -> drop pads
-    if kind in ("mega2", "mega3") and H % 32 == 0 and W % 32 == 0:
-        flat = pk._mega2_unfold_rows(flat, H, W)  # tiled feed -> row-major
-    return flat.reshape(H, W, 3)
 
 
 def render_pixels_shard_map(scene: Scene, config: RenderConfig, mesh: Mesh,
-                            backend: str = "pallas", fused: bool = True):
+                            sweep: bool | None = None, interpret: bool = False):
     """Full sharded forward pass: rays split over ``px``, triangles over
     ``prim``.  Returns the (H, W, 3) f32 image (replicated).
 
-    ``backend="pallas"`` (default) composes the fused VMEM kernels inside
-    shard_map — each chip runs the flagship single-chip path on its shard
-    (px-only meshes route whole scenes through the fused megakernel/mega2
-    pipeline per chip); ``"jnp"`` uses the batched t-matrix ops.
-    ``fused=False`` forces the winner-search/merge pipeline even on px-only
-    meshes (tests/gates of that composition)."""
-    use_pallas = backend == "pallas"
+    Every device takes the route ``route.kind`` picks for the whole scene
+    (``sweep`` forces it); soft-shadow frames take the jnp path, as on one
+    device."""
     n_px = mesh.shape["px"]
     n_prim = mesh.shape["prim"]
-
-    if use_pallas and fused and n_prim == 1:
-        kind = _fused_kind(scene, config)
-        if kind is not None:
-            return _render_fused_px(scene, config, mesh, kind)
-
-    ro, rd = generate_rays(scene.camera, config)
-    num_rays = rd.shape[0]
-    # kernel path: feed rays in mega2 32x32-pixel-block order so each chip's
-    # per-1024-ray cull tiles get tight direction cones instead of 1.6
-    # scanlines (pure permutation; inverted below — same win as the
-    # single-chip differentiable path, PERF.md round 2)
-    tiled = use_pallas and config.height % 32 == 0 and config.width % 32 == 0
-    if tiled:
-        from raytpu.render import pallas_kernel as pk
-
-        rd = pk._mega2_fold(rd, config.height, config.width)
-    rd = _pad_rows(rd, n_px, value=1.0)
 
     tris = _pad_triangles(scene.triangles, max(n_prim, 1)) if scene.triangles.count else scene.triangles
     shard_size = tris.count // n_prim if tris.count else 0
     scene_rest = dataclasses.replace(scene, triangles=None)
+    use_sweep = route.kind(scene, config, sweep) == "sweep"
+
+    ro, rd = generate_rays(scene.camera, config)
+    num_rays = rd.shape[0]
+    # sweep path: feed rays in 32x32-pixel-block order so each device's
+    # sweep tiles get tight direction cones (pure permutation, inverted below)
+    tiled = use_sweep and accel.tile_foldable(config.height, config.width)
+    if tiled:
+        rd = accel.tile_fold(rd, config.height, config.width)
+    rd = _pad_rows(rd, n_px, value=1.0)
 
     rest_spec = jax.tree_util.tree_map(lambda _: P(), scene_rest)
     tri_spec = jax.tree_util.tree_map(lambda _: P("prim"), tris)
@@ -306,24 +205,21 @@ def render_pixels_shard_map(scene: Scene, config: RenderConfig, mesh: Mesh,
     def kernel(scene_rest_l, tris_l, rd_l):
         scene_l = dataclasses.replace(scene_rest_l, triangles=tris_l)
         offset = jax.lax.axis_index("prim") * shard_size
-        colors = _shade_rays_sharded(scene_l, ro, rd_l, config, offset, "prim", use_pallas)
-        return colors
+        return _shade_rays_sharded(scene_l, ro, rd_l, config, offset, "prim",
+                                   use_sweep, interpret)
 
     colors = kernel(scene_rest, tris, rd)[:num_rays]
     if tiled:
-        from raytpu.render import pallas_kernel as pk
-
-        colors = pk._mega2_unfold_rows(colors, config.height, config.width)
+        colors = accel.tile_unfold(colors, config.height, config.width)
     return colors.reshape(config.height, config.width, 3)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "mesh", "backend", "fused"))
-def _render_sharded_jit(scene, config, mesh, backend, fused=True):
-    return render_pixels_shard_map(scene, config, mesh, backend, fused)
+@functools.partial(jax.jit, static_argnames=("config", "mesh", "sweep", "interpret"))
+def _render_sharded_jit(scene, config, mesh, sweep=None, interpret=False):
+    return render_pixels_shard_map(scene, config, mesh, sweep, interpret)
 
 
 def render_image_sharded(scene: Scene, config: RenderConfig, mesh: Mesh,
-                         backend: str = "pallas", fused: bool = True):
+                         sweep: bool | None = None, interpret: bool = False):
     """Jitted sharded render to uint8 (H, W, 3)."""
-    return math3d.quantize_u8(
-        _render_sharded_jit(scene, config, mesh, backend, fused))
+    return math3d.quantize_u8(_render_sharded_jit(scene, config, mesh, sweep, interpret))

@@ -3,8 +3,8 @@
 Pixels (the 'batch' axis) are sharded over the ``px`` mesh axis; scene
 parameters are replicated.  The per-shard loss gradient is all-reduced with
 ``psum`` — emitted inside the backward pass so XLA overlaps the gradient
-all-reduce with remaining backward compute (the BASELINE.md north-star
-overlap requirement; XLA's async collectives handle the scheduling).
+all-reduce with remaining backward compute (XLA's async collectives handle
+the scheduling).
 """
 
 from __future__ import annotations
@@ -18,14 +18,17 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from raytpu.core.types import RenderConfig, Scene
+from raytpu.ops import accel
 from raytpu.render.renderer import generate_rays
 
 
-def make_sharded_train_step(config: RenderConfig, optimizer, param_fn, merge_fn, mesh: Mesh):
-    """Build a jitted multi-chip train step.
+def make_sharded_train_step(config: RenderConfig, optimizer, param_fn, merge_fn, mesh: Mesh,
+                            sweep: bool | None = None, interpret: bool = False):
+    """Build a jitted multi-device train step.
 
     Same contract as raytpu.grad.make_train_step but with the ray grid sharded
     over ``mesh`` axis 'px' and gradients psum-reduced across shards.
+    ``sweep``/``interpret`` are the route override of ``render_soft_f32``.
 
     Returns ``step(params, opt_state, scene, target) -> (params, opt_state, loss)``
     where ``target`` is the (H, W, 3) f32 target image.
@@ -47,14 +50,11 @@ def make_sharded_train_step(config: RenderConfig, optimizer, param_fn, merge_fn,
 
             s = merge_fn(scene, p)
             ro, _ = generate_rays(s.camera, soft_cfg)
-            # same fast path as the single-chip step: detached closest hit,
-            # remat, and (on TPU, when the scene fits) the Pallas soft
-            # custom-VJP kernels — composed per shard inside shard_map
-            closest_fn, soft_multi_fn = diff_render.soft_backends(s, soft_cfg)
+            # same fast path as the single-device step: detached closest hit
+            # (on the culled sweep where the route picks it) and remat
+            closest_fn, _ = diff_render.closest_fn_for(s, sweep, interpret)
             colors = render_pixels_f32(
-                s, ro, rd_block, soft_cfg, closest_fn=closest_fn, remat=True,
-                soft_multi_fn=soft_multi_fn,
-            )
+                s, ro, rd_block, soft_cfg, closest_fn=closest_fn, remat=True)
             err = jnp.sum(jnp.where(valid, (colors - target_block) ** 2, 0.0))
             return err / (num_rays * 3.0)
 
@@ -76,19 +76,13 @@ def make_sharded_train_step(config: RenderConfig, optimizer, param_fn, merge_fn,
         ro, rd = generate_rays(scene.camera, soft_cfg)
         num_rays = rd.shape[0]
         tgt = target.reshape(-1, 3)
-        # kernel path: rays (and target rows, same permutation) in mega2
-        # 32x32-pixel-block order for tight per-1024-ray cull cones inside
-        # each shard (loss is a masked sum — permutation-invariant)
-        _, soft_multi_fn = diff_render.soft_backends(scene, soft_cfg)
-        if (
-            diff_render.TILE_KERNEL_RAYS
-            and soft_multi_fn is not None
-            and soft_cfg.height % 32 == 0 and soft_cfg.width % 32 == 0
-        ):
-            from raytpu.render import pallas_kernel as pk
-
-            rd = pk._mega2_fold(rd, soft_cfg.height, soft_cfg.width)
-            tgt = pk._mega2_fold(tgt, soft_cfg.height, soft_cfg.width)
+        # sweep path: rays (and target rows, same permutation) in
+        # 32x32-pixel-block order for tight per-tile cull cones inside each
+        # shard (the loss is a masked sum — permutation-invariant)
+        _, tiled = diff_render.closest_fn_for(scene, sweep, interpret)
+        if tiled and accel.tile_foldable(soft_cfg.height, soft_cfg.width):
+            rd = accel.tile_fold(rd, soft_cfg.height, soft_cfg.width)
+            tgt = accel.tile_fold(tgt, soft_cfg.height, soft_cfg.width)
         pad = (-num_rays) % n_px
         rd_p = jnp.pad(rd, ((0, pad), (0, 0)), constant_values=1.0)
         tgt_p = jnp.pad(tgt, ((0, pad), (0, 0)))

@@ -1,13 +1,2 @@
-from raytpu.render.renderer import (  # noqa: F401
-    generate_rays,
-    render_image,
-    render_image_f32,
-    render_image_ssaa,
-)
-
-
-def render_image_pallas(scene, config):
-    """Pallas fast-path render (lazy import: pulls in kernel compilation)."""
-    from raytpu.render import pallas_kernel
-
-    return pallas_kernel.render_image(scene, config)
+from raytpu.render.renderer import generate_rays, render_image_ssaa  # noqa: F401
+from raytpu.render.route import render_image, render_image_f32  # noqa: F401

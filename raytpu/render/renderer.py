@@ -3,12 +3,14 @@
 Replaces ``Renderer::Render`` / ``RenderPixel`` (reference:
 source/Renderer.cpp:34-182).  The per-pixel loop becomes batched array ops
 over the whole ray grid; the per-core pixel fan-out (reference:
-source/Renderer.cpp:42-92) becomes XLA vectorization on-chip plus
-``raytpu.parallel`` sharding across chips.
+source/Renderer.cpp:42-92) becomes XLA vectorization on the device plus
+``raytpu.parallel`` sharding across devices.
 
-Rays are processed in chunks (``lax.map``) sized so the (rays x primitives)
-intermediates stay comfortably in HBM/VMEM; the Pallas megakernel in
-``raytpu.render.pallas_kernel`` is the tuned fast path.
+This is the plain jnp path: every ray against every primitive, with rays
+processed in chunks (``lax.map``) sized so the (rays x primitives)
+intermediates stay bounded in device memory.  It is the reference the
+culled sweep (``raytpu.render.sweep``) is tested against; which of the two
+a frame takes is decided in ``raytpu.render.route``.
 """
 
 from __future__ import annotations
@@ -48,30 +50,26 @@ def generate_rays(camera, config: RenderConfig):
 
 
 def shade_rays(scene: Scene, ro, rd, config: RenderConfig, closest_fn=None, any_fn=None,
-               any_multi_fn=None, soft_multi_fn=None):
+               any_multi_fn=None):
     """Full per-ray pipeline for a batch of rays: closest hit, per-light shadow
     + lighting-mode shading, shadow dimming, tone map.  Returns (N,3) f32 in
     [0,1] (pre-quantization).  ``ro`` is (3,) or (N,3).
 
-    ``closest_fn``/``any_fn`` select the intersection backend (default: the
-    batched jnp ops; raytpu.render.pallas_kernel passes its fused kernels).
-    ``any_multi_fn(scene, p_off, dirs (L,R,3), mags (L,R), tmin) -> (L,R)``
-    computes every light's occlusion in one fused pass when provided;
-    ``soft_multi_fn(scene, p_off, dirs, mags) -> (L,R)`` likewise for the
-    soft (differentiable) transmittance (raytpu.grad.soft).
+    ``closest_fn``/``any_fn`` select the intersection implementation
+    (default: the batched jnp ops).  ``any_multi_fn(scene, p_off, dirs
+    (L,R,3), mags (L,R), tmin) -> (L,R)`` computes every light's occlusion
+    in one pass when provided (the culled sweep's any-hit).
     """
     closest_fn = closest_fn or intersect.closest_hit
     ro = jnp.broadcast_to(ro, rd.shape)
     rec = closest_fn(scene, ro, rd, config.ray_min)
     return shade_from_records(scene, rec, rd, config, any_fn=any_fn,
-                              any_multi_fn=any_multi_fn,
-                              soft_multi_fn=soft_multi_fn)
+                              any_multi_fn=any_multi_fn)
 
 
 def shadow_query_inputs(scene: Scene, rec, config: RenderConfig):
     """(p_off (R,3), dirs (L,R,3), mags (L,R)) for the per-light occlusion
-    queries — shared by shade_from_records and the remat-hoisted
-    transmittance so the two always use identical formulas."""
+    queries of ``shade_from_records``."""
     n_c = soa.comps(rec.normal)
     p_off = soa.pack(
         *soa.add(soa.comps(rec.point), soa.scale(n_c, jnp.float32(config.normal_offset)))
@@ -84,22 +82,14 @@ def shadow_query_inputs(scene: Scene, rec, config: RenderConfig):
 
 
 def shade_from_records(scene: Scene, rec, rd, config: RenderConfig,
-                       any_fn=None, any_multi_fn=None, soft_multi_fn=None,
-                       trans_multi=None):
+                       any_fn=None, any_multi_fn=None):
     """The shading tail of ``shade_rays`` given precomputed hit records —
     split out so the differentiable path can place its remat boundary here
     (the closest hit's records are cheap residuals; recomputing the winner
-    search + payload assembly in every backward is not).  ``trans_multi``
-    short-circuits the soft transmittance with a precomputed (L, R) array —
-    the remat path hoists the custom-VJP kernels (whose residuals are O(R)
-    and saved regardless) outside the checkpoint so the backward does not
-    re-execute them."""
+    search + payload assembly in every backward is not)."""
     any_fn = any_fn or intersect.any_hit
     n = rd.shape[0]
 
-    # offset shading point + per-light directions via shadow_query_inputs —
-    # the ONE place these formulas live (the remat-hoisted transmittance
-    # uses the same helper, so the shadow origins can never drift)
     n_c = soa.comps(rec.normal)
     p_off, dirs_all, mags_all = shadow_query_inputs(scene, rec, config)
 
@@ -111,20 +101,14 @@ def shade_from_records(scene: Scene, rec, rd, config: RenderConfig,
     if (any_multi_fn is not None and config.shadows and not config.soft_shadows
             and dirs_all is not None):
         occ_multi = any_multi_fn(scene, p_off, dirs_all, mags_all, config.ray_min)
-    if (trans_multi is None and soft_multi_fn is not None and config.shadows
-            and config.soft_shadows and dirs_all is not None):
-        trans_multi = soft_multi_fn(scene, p_off, dirs_all, mags_all)
 
     for li in range(scene.lights.count):
         l, mag = dirs_all[li], mags_all[li]
         if config.shadows and config.soft_shadows:
             # differentiable transmittance in [0,1]; hard limit as beta->inf
-            if trans_multi is not None:
-                trans = trans_multi[li]
-            else:
-                trans = intersect.soft_transmittance(
-                    scene, p_off, l, jnp.float32(config.ray_min), mag, jnp.float32(config.soft_beta)
-                )
+            trans = intersect.soft_transmittance(
+                scene, p_off, l, jnp.float32(config.ray_min), mag, jnp.float32(config.soft_beta)
+            )
             trans = jnp.where(rec.hit, trans, 1.0)
         elif config.shadows:
             occluded = occ_multi[li] if occ_multi is not None else any_fn(scene, p_off, l, config.ray_min, mag)
@@ -169,8 +153,8 @@ def mark_detached(fn):
     search whose backward never transposes the O(R*C) t-matrix.  Only such
     overrides may be hoisted outside the remat checkpoint in
     ``render_pixels_f32``; unmarked overrides stay inside the full-body
-    checkpoint (ADVICE r4: an unmarked dense closest_fn would silently
-    reintroduce the residual blowup remat exists to fix)."""
+    checkpoint (an unmarked dense closest_fn would silently reintroduce the
+    residual blowup remat exists to fix)."""
 
     def wrapped(*args, **kwargs):
         return fn(*args, **kwargs)
@@ -185,9 +169,9 @@ def _auto_chunk(num_rays: int, num_prims: int) -> int:
     Chunks are balanced (ceil-div) and 1024-aligned so the final chunk is
     nearly full: a power-of-two chunk on 640x480 (307,200 rays) padded to
     2x262,144 — 71% wasted work.  Chunks are also capped at 75k rays even
-    when the t-matrix would fit: smaller per-chunk intermediates keep the
-    fused elementwise chain in VMEM (640x480 reference scene: one 307k-ray
-    chunk 8.96 ms vs 4x76,800 6.68 ms, PERF.md round 2).
+    when the t-matrix would fit: on the H100 the 640x480 reference scene
+    renders in 4x76,800-ray chunks 8% faster than in one 307,200-ray chunk
+    (chip_smoke.py phase 1, PERF.md).
     """
     target = max(1024, min(75 * 1024, (1 << 25) // max(num_prims, 1)))
     if num_rays <= target:
@@ -197,51 +181,36 @@ def _auto_chunk(num_rays: int, num_prims: int) -> int:
 
 
 def render_pixels_f32(scene: Scene, ro, rd, config: RenderConfig, closest_fn=None,
-                      remat: bool = False, soft_multi_fn=None):
+                      remat: bool = False):
     """Chunked shade_rays over an arbitrary flat ray batch.
 
     ``remat``: wrap the shade in ``jax.checkpoint`` so a backward pass
-    recomputes the forward instead of loading its residuals from HBM — the
-    differentiable path's backward is HBM-bound, not FLOP-bound (PERF.md).
+    recomputes the forward instead of saving its O(rays x primitives)
+    residuals in HBM.
     """
     n = rd.shape[0]
     nprim = max(scene.num_primitives, 1)
     chunk = config.ray_chunk or _auto_chunk(n, nprim)
     if (remat and closest_fn is not None
             and getattr(closest_fn, "detached_residuals", False)):
-        # remat boundary AFTER the closest hit AND the soft-transmittance
-        # kernels: the hit records (~11 floats/ray) and the (L, R)
-        # transmittance are cheap residuals (the custom-VJP kernels save
-        # O(R) residuals regardless), so the backward recomputes only the
-        # elementwise shade tail — not the winner search, payload assembly,
-        # or the culled soft kernels (PERF.md round 4).  Only valid for
-        # ``mark_detached`` overrides (O(R) residuals): a dense
-        # differentiable closest_fn must stay INSIDE the checkpoint or its
-        # O(R*C) t-matrix residuals get saved for the transpose — the exact
-        # HBM-bound backward blowup remat was introduced to fix.
+        # remat boundary AFTER the closest hit: the hit records (~11
+        # floats/ray) are cheap residuals, so the backward recomputes only
+        # the shade tail (soft transmittance included) — not the winner
+        # search and payload assembly.  Only valid for ``mark_detached``
+        # overrides (O(R) residuals): a dense differentiable closest_fn must
+        # stay INSIDE the checkpoint or its O(R*C) t-matrix residuals get
+        # saved for the transpose — the exact blowup remat exists to fix.
         shade_ckpt = jax.checkpoint(
-            lambda s, rec, rds: shade_from_records(
-                s, rec, rds, config, soft_multi_fn=soft_multi_fn))
-        shade_ckpt_t = jax.checkpoint(
-            lambda s, rec, rds, tm: shade_from_records(
-                s, rec, rds, config, trans_multi=tm))
-        hoist_soft = (soft_multi_fn is not None and config.shadows
-                      and config.soft_shadows and scene.lights.count > 0)
+            lambda s, rec, rds: shade_from_records(s, rec, rds, config))
 
         def body(s, rds):
             rec = closest_fn(s, jnp.broadcast_to(ro, rds.shape), rds, config.ray_min)
-            if hoist_soft:
-                p_off, dirs, mags = shadow_query_inputs(s, rec, config)
-                trans = soft_multi_fn(s, p_off, dirs, mags)
-                return shade_ckpt_t(s, rec, rds, trans)
             return shade_ckpt(s, rec, rds)
     elif remat:
         body = jax.checkpoint(
-            lambda s, rds: shade_rays(s, ro, rds, config, closest_fn=closest_fn,
-                                      soft_multi_fn=soft_multi_fn))
+            lambda s, rds: shade_rays(s, ro, rds, config, closest_fn=closest_fn))
     else:
-        body = lambda s, rds: shade_rays(s, ro, rds, config, closest_fn=closest_fn,
-                                         soft_multi_fn=soft_multi_fn)
+        body = lambda s, rds: shade_rays(s, ro, rds, config, closest_fn=closest_fn)
     if n <= chunk:
         return body(scene, rd)
     pad = (-n) % chunk

@@ -122,22 +122,13 @@ class Benchmark:
 
 @dataclass
 class RayStats:
-    """Rays/s counters per pipeline stage — the observability the reference
-    lacks (SURVEY.md §5.1).  Whole-frame counters accumulate per frame via
-    ``add_frame``; per-stage ms come from a ``stage_profile.profile_stages``
-    run via ``set_stage_report``."""
+    """Whole-frame rays/s counters — the observability the reference lacks
+    (SURVEY.md §5.1).  Counters accumulate per frame via ``add_frame``."""
 
     primary_rays: int = 0
     shadow_rays: int = 0
     frames: int = 0
     seconds: float = 0.0
-    stage_ms: dict = field(default_factory=dict)
-    stage_rays_per_s: dict = field(default_factory=dict)
-
-    def set_stage_report(self, report: dict):
-        """Attach a per-stage breakdown (see raytpu.utils.stage_profile)."""
-        self.stage_ms = dict(report.get("stages_ms", {}))
-        self.stage_rays_per_s = dict(report.get("stage_rays_per_s", {}))
 
     def add_frame(self, width: int, height: int, num_lights: int, seconds: float, shadows: bool = True):
         n = width * height
@@ -158,7 +149,7 @@ class RayStats:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """jax.profiler trace context for TPU timeline capture."""
+    """jax.profiler trace context: captures the device timeline."""
     import jax
 
     jax.profiler.start_trace(log_dir)

@@ -1,5 +1,5 @@
 """Committed golden-buffer regression test: the full-resolution default scene
-must keep rendering the same image (the TPU analog of the reference's
+must keep rendering the same image (the analog of the reference's
 committed benchmark.txt + screenshot workflow, SURVEY.md §4)."""
 
 from pathlib import Path
@@ -13,15 +13,13 @@ from raytpu.render import render_image
 GOLDEN_DIR = Path(__file__).parent / "golden"
 
 
-def _check_golden(img, name, budget=0.002):
-    from PIL import Image
+def _check_golden(img, name):
+    from raytpu.utils.image import FLIP_BUDGET, MEAN_DIFF_BUDGET, flip_stats, read_png
 
-    golden = np.asarray(Image.open(GOLDEN_DIR / name)).astype(int)
-    diff = np.abs(img.astype(int) - golden)
-    flipped = (diff > 1).any(axis=-1).mean()
+    flipped, mean_diff = flip_stats(img, read_png(str(GOLDEN_DIR / name)))
     # tiny boundary-flip budget for fp reassociation across jax versions
-    assert flipped <= budget, f"{flipped:.4%} pixels flipped vs {name} (max {diff.max()})"
-    assert diff.mean() <= 0.1
+    assert flipped <= FLIP_BUDGET, f"{flipped:.4%} pixels flipped vs {name}"
+    assert mean_diff <= MEAN_DIFF_BUDGET
 
 
 def test_reference_scene_matches_committed_golden():

@@ -1,7 +1,7 @@
 """The fast differentiable path (detached-hit closest intersection) must match
 the plain jnp soft render in BOTH value and gradients: the argmin it detaches
 carries zero gradient a.e. in the jnp path too, so agreement is exact up to fp
-noise (VERDICT round 1 weak #2 -> round 2 item: fast fwd+bwd path)."""
+noise."""
 
 import dataclasses
 

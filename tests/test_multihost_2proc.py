@@ -1,4 +1,4 @@
-"""REAL multi-process distributed execution (VERDICT r4 missing #1).
+"""REAL multi-process distributed execution.
 
 Spawns 2 OS processes, each with 2 CPU devices, wired by
 ``jax.distributed.initialize`` (Gloo collectives).  Two mesh layouts run:

@@ -1,5 +1,5 @@
 """Golden-image tests: the jitted JAX renderer must match the scalar NumPy
-oracle on every course scene, in every lighting mode — the TPU analog of the
+oracle on every course scene, in every lighting mode — the analog of the
 reference's graded visual fixtures (SURVEY.md §4)."""
 
 import numpy as np

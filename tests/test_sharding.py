@@ -1,6 +1,7 @@
 """Multi-device tests on the virtual 8-device CPU mesh: sharded output must be
-bit-identical to single-device output (the TPU analog of the reference's
-BVH-vs-linear metamorphic toggle, SURVEY.md §4)."""
+bit-identical to single-device output (the analog of the reference's
+BVH-vs-linear metamorphic toggle, SURVEY.md §4).  Sweep cases force the
+culled sweep in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -37,50 +38,35 @@ def test_eight_devices_available():
 def test_sharded_render_bit_identical(scene, single_device_image, px, prim):
     mesh = make_mesh(px=px, prim=prim)
     img = np.asarray(render_image_sharded(scene, CFG, mesh))
-    if prim == 1:
-        # px-only meshes route each chip through the fused whole-frame
-        # megakernel (tile-range raygen): bit-identical to the single-chip
-        # PALLAS router (the megakernel itself carries the documented tiny
-        # flip budget vs the jnp path, tested elsewhere)
-        from raytpu.render import render_image_pallas
-
-        ref = np.asarray(render_image_pallas(scene, CFG))
-        np.testing.assert_array_equal(img, ref)
-    else:
-        np.testing.assert_array_equal(img, single_device_image)
+    np.testing.assert_array_equal(img, single_device_image)
 
 
-def test_fused_px_mega3_bit_identical():
-    """The fused mega3 (DMA-streamed) tile-range pipeline — kept off the
-    default routing (winner-search measured faster in its band, see
-    _fused_kind) but TPU-gated and tested: per-chip tile ranges must be
-    bit-identical to the whole-frame mega3 render."""
-    from raytpu.render import pallas_kernel as pk
-    from raytpu.parallel.sharding import _render_fused_px
-    import raytpu.core.math3d as m3
+@pytest.mark.parametrize("px,prim", [(8, 1), (2, 4)])
+def test_sharded_sweep_bit_identical(px, prim):
+    """The sweep forced on every shard (interpret mode) matches the
+    one-device sweep render, which matches jnp."""
+    from raytpu.render import render_image
 
     bunny = scenes.get("bunny").build()
     cfg = RenderConfig(width=64, height=32)
-    ref = np.asarray(m3.quantize_u8(pk.render_image_mega3_f32(bunny, cfg)))
-    img = np.asarray(m3.quantize_u8(jax.jit(
-        lambda s: _render_fused_px(s, cfg, make_mesh(px=8, prim=1), "mega3")
-    )(bunny)))
+    ref = np.asarray(render_image(bunny, cfg, sweep=True, interpret=True))
+    np.testing.assert_array_equal(ref, np.asarray(render_image(bunny, cfg)))
+    img = np.asarray(render_image_sharded(bunny, cfg, make_mesh(px=px, prim=prim),
+                                          sweep=True, interpret=True))
     np.testing.assert_array_equal(img, ref)
 
 
 @pytest.mark.parametrize("size", [(64, 32), (64, 48)])
-def test_fused_px_mega2_bit_identical(size):
-    """px-only sharding on a mesh scene routes the fused mega2 chain per
-    chip (tiled feed order when 32-divisible, row-major otherwise); output
-    must be bit-identical to the single-chip mega2 whole-frame render."""
-    from raytpu.parallel.sharding import _fused_kind
-    from raytpu.render import render_image_pallas
+def test_sharded_sweep_fold_orders(size):
+    """px-only sharding with the sweep forced: 32-divisible frames go in
+    block order, others row-major; both must match the jnp frame."""
+    from raytpu.render import render_image
 
     bunny = scenes.get("bunny").build()
     cfg = RenderConfig(width=size[0], height=size[1])
-    assert _fused_kind(bunny, cfg) == "mega2"
-    ref = np.asarray(render_image_pallas(bunny, cfg))
-    img = np.asarray(render_image_sharded(bunny, cfg, make_mesh(px=8, prim=1)))
+    ref = np.asarray(render_image(bunny, cfg))
+    img = np.asarray(render_image_sharded(bunny, cfg, make_mesh(px=8, prim=1),
+                                          sweep=True, interpret=True))
     np.testing.assert_array_equal(img, ref)
 
 
@@ -152,26 +138,21 @@ def test_sharded_render_tiled_bit_identical(single_device_image):
     np.testing.assert_array_equal(img, ref)
 
 
-def test_sharded_render_streamed_kernels_bit_identical(monkeypatch):
-    """Per-chip shards past the SMEM chain budget ride the DMA-streamed
-    winner-search/any-hit kernels inside shard_map (VERDICT r3 #4: the
-    (RT, CT) loser path is deleted).  Streaming FORCED via MAX_TRIS=0 so a
-    small scene exercises the sharded+streamed composition."""
-    from raytpu.render import pallas_soft as ps
-
-    monkeypatch.setattr(ps, "MAX_TRIS", 0)
+def test_sharded_render_sweep_tiled_bit_identical():
+    """px x prim sharding with the sweep forced on a 32-divisible frame:
+    rays fold into block order before shard_map and back after."""
     bunny = scenes.get("bunny").build()
     cfg = RenderConfig(width=64, height=32)
     from raytpu.render import render_image
 
     ref = np.asarray(render_image(bunny, cfg))
     mesh = make_mesh(px=2, prim=4)
-    img = np.asarray(render_image_sharded(bunny, cfg, mesh))
+    img = np.asarray(render_image_sharded(bunny, cfg, mesh, sweep=True, interpret=True))
     np.testing.assert_array_equal(img, ref)
 
 
 def test_sharded_ssaa_matches_single_device():
-    """SSAA composes with sharding (VERDICT r3 weak #5): the supersampled
+    """SSAA composes with sharding: the supersampled
     grid shards like any other resolution, box filter applied after."""
     from raytpu.parallel.sharding import _render_sharded_jit
     from raytpu.render.renderer import render_image_f32, render_image_ssaa
@@ -181,29 +162,24 @@ def test_sharded_ssaa_matches_single_device():
     ref = np.asarray(render_image_ssaa(bunny, cfg, samples=2,
                                        render_fn=render_image_f32))
     mesh = make_mesh(px=4, prim=2)
-    base = lambda s, c: _render_sharded_jit(s, c, mesh, "jnp")
+    base = lambda s, c: _render_sharded_jit(s, c, mesh, sweep=False)
     img = np.asarray(render_image_ssaa(bunny, cfg, samples=2, render_fn=base))
     np.testing.assert_array_equal(img, ref)
 
 
-def test_sharded_train_step_tiled_kernels_matches(monkeypatch):
-    """Sharded step with the Pallas soft kernels forced (interpret mode) and
-    a 32-divisible resolution — exercises the mega2 ray/target fold inside
-    the step — must match the single-device kernel step."""
+def test_sharded_train_step_sweep_matches():
+    """Sharded step with the sweep forced (interpret mode) and a
+    32-divisible resolution — exercises the block-order ray/target fold
+    inside the step — must match the single-device sweep step."""
     bunny = scenes.get("bunny").build()
     cfg = RenderConfig(width=64, height=32)
-    orig = diff_render.soft_backends
-    monkeypatch.setattr(
-        diff_render, "soft_backends",
-        lambda s, c, detached=True, kernels=None, payload_grad=True:
-            orig(s, c, detached, True, payload_grad),
-    )
     target = jnp.zeros((32, 64, 3), jnp.float32)
     opt = optax.sgd(1e-2)
     params0 = diff_render.material_params(bunny)
 
     step1 = diff_render.make_train_step(
-        cfg, opt, diff_render.material_params, diff_render.merge_material_params
+        cfg, opt, diff_render.material_params, diff_render.merge_material_params,
+        sweep=True, interpret=True,
     )
     p1, _, loss1 = step1(
         jax.tree_util.tree_map(jnp.copy, params0), opt.init(params0), bunny, target
@@ -211,7 +187,8 @@ def test_sharded_train_step_tiled_kernels_matches(monkeypatch):
 
     mesh = make_mesh(px=8, prim=1)
     step8 = make_sharded_train_step(
-        cfg, opt, diff_render.material_params, diff_render.merge_material_params, mesh
+        cfg, opt, diff_render.material_params, diff_render.merge_material_params, mesh,
+        sweep=True, interpret=True,
     )
     p8, _, loss8 = step8(
         jax.tree_util.tree_map(jnp.copy, params0), opt.init(params0), bunny, target
